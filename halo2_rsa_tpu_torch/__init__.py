@@ -12,12 +12,17 @@ Layer map (one module per module of the JAX package):
   bigint/, rsa/, sha256/ — the circuit gadgets (carried)
   prover/   — curve/transcript (carried), G1 points and their CUDA kernels,
               NTT, MSM, KZG, PLONK keygen/prove/verify
-  utils/    — phase timers
+  utils/    — phase timers, the kernels' build
+  bench/    — the probes: integer op rates (``vpu_ops``) and K1's memory
+              layouts (``mont_layout``)
   csrc/     — the hand-written CUDA sources for sm_90a
   convert   — state carried across from the JAX package (numpy in)
 
 A CUDA tensor runs the kernels; a CPU tensor runs each kernel's plain
-PyTorch version. Nothing here imports JAX.
+PyTorch version. Entry points that make tensors (``kzg.setup``,
+``plonk.verify``, ``msm.run_msm``, ``convert.*``, ``vecfield.from_ints``,
+...) put them on the card unless the caller passes ``device="cpu"``.
+Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -17,17 +17,17 @@ from .fields import vecfield
 from .prover import kzg, plonk
 
 
-def limbs(arr16, device="cpu") -> torch.Tensor:
+def limbs(arr16, device="cuda") -> torch.Tensor:
     """Reference (..., 16) uint32 limb array -> port (..., 8) int32 tensor."""
     return torch.from_numpy(vecfield.limbs_from_ref(np.asarray(arr16))).to(device)
 
 
-def points(coords16, device="cpu") -> tuple:
+def points(coords16, device="cuda") -> tuple:
     """Reference projective coordinate tuple -> port coordinate tuple."""
     return tuple(limbs(c, device) for c in coords16)
 
 
-def srs(ref_srs, device="cpu") -> kzg.SRS:
+def srs(ref_srs, device="cuda") -> kzg.SRS:
     """Reference ``kzg.SRS`` (n, g1_powers, g2_gen, g2_tau) -> port SRS."""
     return kzg.SRS(
         n=int(ref_srs.n),
@@ -58,7 +58,7 @@ def _opt(arr16, device):
     return None if arr16 is None else limbs(arr16, device)
 
 
-def proving_key(ref_pk, device="cpu") -> plonk.ProvingKey:
+def proving_key(ref_pk, device="cuda") -> plonk.ProvingKey:
     """Reference ``ProvingKey`` -> port, field by field (plonk.py:91-120)."""
     return plonk.ProvingKey(
         vk=verifying_key(ref_pk.vk),

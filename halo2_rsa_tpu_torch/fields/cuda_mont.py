@@ -161,21 +161,27 @@ def p_arg(fc):
     return arr
 
 
-def check_kernel_args(*ts: torch.Tensor) -> None:
-    """What every kernel wrapper requires: CUDA int32 (..., 8) contiguous
-    tensors, all of one shape on one device."""
+def check_cuda_int32(*ts: torch.Tensor) -> None:
+    """What every kernel wrapper requires: CUDA int32 contiguous tensors,
+    all of one shape on one device."""
     t0 = ts[0]
     for t in ts:
         if not t.is_cuda:
             raise ValueError(f"kernel argument on {t.device}, expected a CUDA tensor")
         if t.dtype != torch.int32:
             raise TypeError(f"kernel argument of dtype {t.dtype}, expected torch.int32")
-        if t.shape[-1:] != (LIMBS,):
-            raise ValueError(f"kernel argument of shape {tuple(t.shape)}, trailing dim must be 8")
         if not t.is_contiguous():
             raise ValueError("kernel argument is not contiguous")
         if t.shape != t0.shape or t.device != t0.device:
             raise ValueError("kernel arguments differ in shape or device")
+
+
+def check_kernel_args(*ts: torch.Tensor) -> None:
+    """:func:`check_cuda_int32`, and field elements: a trailing dim of 8."""
+    check_cuda_int32(*ts)
+    for t in ts:
+        if t.shape[-1:] != (LIMBS,):
+            raise ValueError(f"kernel argument of shape {tuple(t.shape)}, trailing dim must be 8")
 
 
 def check_launch(err: int, name: str) -> None:

@@ -240,7 +240,7 @@ def reduce_add(fc: FieldConsts, vals: torch.Tensor) -> torch.Tensor:
     return vals[0]
 
 
-def pow_series(fc: FieldConsts, x_int: int, n: int, device="cpu") -> torch.Tensor:
+def pow_series(fc: FieldConsts, x_int: int, n: int, device="cuda") -> torch.Tensor:
     """[x^0, x^1, ..., x^{n-1}] as an (n, 8) Montgomery tensor on ``device``
     (prefix product of the rows [1, x, x, ...])."""
     n = max(n, 1)
@@ -266,7 +266,7 @@ def from_ints_np(fc: FieldConsts, xs, mont: bool = True) -> np.ndarray:
     return arr.view(np.int32).copy()
 
 
-def from_ints(fc: FieldConsts, xs, mont: bool = True, device="cpu") -> torch.Tensor:
+def from_ints(fc: FieldConsts, xs, mont: bool = True, device="cuda") -> torch.Tensor:
     """Python ints -> (len, 8) limb tensor on ``device``."""
     return torch.from_numpy(from_ints_np(fc, xs, mont)).to(device)
 

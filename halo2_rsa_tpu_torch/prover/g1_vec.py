@@ -54,7 +54,7 @@ def point_select(mask, p_true, p_false):
     return tuple(torch.where(m, a, b) for a, b in zip(p_true, p_false))
 
 
-def identity(batch_shape=(), device="cpu"):
+def identity(batch_shape=(), device="cuda"):
     """(0, 1, 0) in Montgomery form, broadcast to batch_shape."""
     shape = tuple(batch_shape) + (LIMBS,)
     zero = torch.zeros(shape, dtype=torch.int32, device=device)
@@ -80,7 +80,7 @@ def points_to_affine(p):
 # ---------------------------------------------------------------------------
 
 
-def points_to_device(points, device="cpu") -> tuple:
+def points_to_device(points, device="cuda") -> tuple:
     """Host affine points (x, y) or None -> projective tensors on ``device``;
     infinity becomes (0, 1, 0)."""
     xs, ys, zs = [], [], []

@@ -63,7 +63,7 @@ def _fb_mul(sc: torch.Tensor, table):
     return acc
 
 
-def fixed_base_mul_batch(scalars_int: list[int], base=curve.G1_GEN, device="cpu"):
+def fixed_base_mul_batch(scalars_int: list[int], base=curve.G1_GEN, device="cuda"):
     """[s_i * base] for many scalars: windowed fixed-base table on
     ``device``, processed in segments of at most _FB_SEG points."""
     wbases = []
@@ -91,7 +91,7 @@ def fixed_base_mul_batch(scalars_int: list[int], base=curve.G1_GEN, device="cpu"
     return tuple(torch.cat([o[c] for o in outs], dim=0) for c in range(3))
 
 
-def setup(n: int, tau: int | None = None, seed: int = 0, device="cpu") -> SRS:
+def setup(n: int, tau: int | None = None, seed: int = 0, device="cuda") -> SRS:
     """An SRS with ``n`` G1 powers on ``device`` (ParamsKZG::setup analog)."""
     import random
 

@@ -275,7 +275,7 @@ def msm_host(scalars_int, points_affine):
     return acc
 
 
-def run_msm_async(scalars_int, points_affine, device="cpu"):
+def run_msm_async(scalars_int, points_affine, device="cuda"):
     """Start one host-int MSM on ``device``; returns a finish() closure that
     yields the affine result. Up to 512 points the window sums come back in
     one transfer and are Horner-combined on the host (the device's
@@ -313,6 +313,6 @@ def run_msm_async(scalars_int, points_affine, device="cpu"):
     return lambda: g1_vec.points_from_device(tuple(c[None] for c in res))[0]
 
 
-def run_msm(scalars_int, points_affine, device="cpu"):
+def run_msm(scalars_int, points_affine, device="cuda"):
     """Host wrapper: ints + affine points -> one affine point."""
     return run_msm_async(scalars_int, points_affine, device)()

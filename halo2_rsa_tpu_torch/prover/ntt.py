@@ -96,7 +96,7 @@ _TW_FULL_CACHE: dict = {}
 _TW_FULL_MAX_LOG_N = 20
 
 
-def _twiddles_full(log_n: int, inverse: bool, device="cpu"):
+def _twiddles_full(log_n: int, inverse: bool, device):
     """(log_n, N/2, 8) stage twiddles, built once per (log_n, direction,
     device) and cached; None above _TW_FULL_MAX_LOG_N."""
     if log_n > _TW_FULL_MAX_LOG_N or log_n == 0:

@@ -416,7 +416,7 @@ def _apply_blind(polys, b_mont):
     return torch.cat([head, polys[:, BLIND:], b_mont], dim=1)
 
 
-def _rand_blind(num_polys: int, rng, device="cpu") -> torch.Tensor:
+def _rand_blind(num_polys: int, rng, device) -> torch.Tensor:
     """Secret uniform blinding coefficients, (num_polys, BLIND, 8) Montgomery;
     the rng draws exactly as the reference does."""
     if rng is None:
@@ -892,8 +892,9 @@ def _absorb_vk(t, vk: VerifyingKey, pubs) -> None:
 # ---------------------------------------------------------------------------
 
 
-def verify(vk: VerifyingKey, proof: bytes, public_inputs: list[int], device="cpu") -> bool:
+def verify(vk: VerifyingKey, proof: bytes, public_inputs: list[int], device="cuda") -> bool:
     """Check a proof; the fold MSM runs on ``device``, the rest on the host."""
+    torch.empty(0, device=device)  # a device that cannot run raises here, not as a rejection
     try:
         return _verify_inner(vk, proof, public_inputs, device)
     except (AssertionError, IndexError, ValueError):

@@ -1,1 +1,19 @@
-../../halo2_rsa_tpu/rsa/__init__.py
+from .chip import RSAChip
+from .types import (
+    DEFAULT_E,
+    AssignedRSAPublicKey,
+    AssignedRSASignature,
+    RSAPubE,
+    RSAPublicKey,
+    RSASignature,
+)
+
+__all__ = [
+    "DEFAULT_E",
+    "AssignedRSAPublicKey",
+    "AssignedRSASignature",
+    "RSAChip",
+    "RSAPubE",
+    "RSAPublicKey",
+    "RSASignature",
+]

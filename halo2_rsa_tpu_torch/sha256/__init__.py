@@ -1,1 +1,3 @@
-../../halo2_rsa_tpu/sha256/__init__.py
+from .chip import Sha256Chip
+
+__all__ = ["Sha256Chip"]

@@ -24,7 +24,7 @@ class Phases:
 
     @staticmethod
     def _sync() -> None:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
+        if torch.cuda.is_initialized():
             torch.cuda.synchronize()
 
     @contextlib.contextmanager
@@ -53,3 +53,26 @@ class Phases:
 
     def dump(self) -> str:
         return json.dumps(self.report())
+
+
+def chain_ms(step, x, iters: int) -> float:
+    """Mean ms of ``step`` over a chain ``x = step(x)`` of ``iters`` calls,
+    after one call that warms up (and builds); ``x`` is a tensor or a tuple
+    of tensors on one device. On the card the chain is timed with CUDA
+    events; on the CPU with the host clock."""
+    x = step(x)
+    lead = x if isinstance(x, torch.Tensor) else x[0]
+    if not lead.is_cuda:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            x = step(x)
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize(lead.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        x = step(x)
+    end.record()
+    torch.cuda.synchronize(lead.device)
+    return start.elapsed_time(end) / iters

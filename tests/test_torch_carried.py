@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: its carried host modules are the JAX
-package's files byte for byte (kept as relative symlinks, so they cannot
-drift), it imports neither ``jax`` nor ``halo2_rsa_tpu`` nor
+"""The PyTorch port stands alone: its carried host modules are its own
+files (no links) holding the same code as the JAX package's (the same
+syntax tree once docstrings are dropped: the copies cite the upstream
+halo2-rsa sources by their relative paths), no file of it names an absolute
+path of the checkout, it imports neither ``jax`` nor ``halo2_rsa_tpu`` nor
 ``cryptography``, and it proves on the CPU with all three blocked.
-Comparisons are exact (bytes)."""
+Comparisons are exact (syntax trees, bytes)."""
 
 import ast
 import os
@@ -36,14 +38,41 @@ CARRIED = [
 ]
 
 
+def _code_without_docstrings(path: str) -> str:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
 @pytest.mark.parametrize("rel", CARRIED)
 def test_carried_file_is_byte_identical(rel):
-    with open(os.path.join(REF, rel), "rb") as a, open(os.path.join(PORT, rel), "rb") as b:
-        assert a.read() == b.read(), f"{rel} drifted from the JAX package's copy"
-    # a relative link, so any checkout or copy of the tree keeps it working
-    link = os.path.join(PORT, rel)
-    if os.path.islink(link):
-        assert not os.path.isabs(os.readlink(link))
+    """Same code (the name is kept from when the copies were links)."""
+    port = os.path.join(PORT, rel)
+    assert not os.path.islink(port), f"{rel} is a link, not the port's own file"
+    assert _code_without_docstrings(port) == _code_without_docstrings(os.path.join(REF, rel)), \
+        f"{rel} drifted from the JAX package's code"
+
+
+def test_port_has_no_links_and_no_checkout_paths():
+    here = os.path.abspath(ROOT)
+    parent = os.path.dirname(here)
+    needles = [here + os.sep] + ([parent + os.sep] if parent != os.sep else [])
+    for dirpath, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for name in dirs + files:
+            path = os.path.join(dirpath, name)
+            assert not os.path.islink(path), f"{path} is a link"
+            if name in files:
+                with open(path, "rb") as f:
+                    text = f.read().decode("utf-8", "replace")
+                for needle in needles:
+                    assert needle not in text, f"{path} names the absolute path {needle}"
 
 
 def _port_sources():
@@ -55,7 +84,10 @@ def _port_sources():
 
 def test_port_imports_no_jax_reference_or_cryptography():
     banned = ("jax", "jaxlib", "halo2_rsa_tpu", "cryptography")
-    for path in _port_sources():
+    sources = list(_port_sources())
+    assert os.path.join(PORT, "bench", "vpu_ops.py") in sources
+    assert os.path.join(PORT, "bench", "mont_layout.py") in sources
+    for path in sources + [os.path.join(ROOT, "chip_smoke.py")]:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -82,12 +114,12 @@ from halo2_rsa_tpu_torch.circuit import checker
 from halo2_rsa_tpu_torch.prover import kzg, plonk
 meta, want = golden.load("arith_k5")
 b, pubs = golden.build_circuit("arith_k5")
-srs = kzg.setup(meta["srs_n"], tau=meta["tau"])
+srs = kzg.setup(meta["srs_n"], tau=meta["tau"], device="cpu")
 pk, vk = plonk.keygen(checker.compile_circuit(b), srs, k=meta["k"])
 proof = plonk.prove(pk, b.values, pubs, rng=random.Random(meta["seed"]))
 assert proof == want, "proof differs from the JAX-made golden proof"
-assert plonk.verify(vk, proof, pubs)
-assert not plonk.verify(vk, proof, [pubs[0] + 1])
+assert plonk.verify(vk, proof, pubs, device="cpu")
+assert not plonk.verify(vk, proof, [pubs[0] + 1], device="cpu")
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m, v in sys.modules.items() if v)
 print("OK", len(proof))
 """

@@ -53,7 +53,7 @@ def _inputs():
 
 def _both(coord_ints):
     j = tuple(jg1.vecfield.from_ints(jg1.FQ, c) for c in coord_ints)
-    t = tuple(tvf.from_ints(tg1.FQ, c) for c in coord_ints)
+    t = tuple(tvf.from_ints(tg1.FQ, c, device="cpu") for c in coord_ints)
     return j, t
 
 
@@ -83,7 +83,7 @@ def _affine_operand(pts):
     aff = [aff[0]] + aff[2:4] + [curve.g1_neg(aff[4])] + aff[5:] + aff[1:2]
     xy = [[p[0] for p in aff], [p[1] for p in aff]]
     jxy = tuple(jg1.vecfield.from_ints(jg1.FQ, c) for c in xy)
-    txy = tuple(tvf.from_ints(tg1.FQ, c) for c in xy)
+    txy = tuple(tvf.from_ints(tg1.FQ, c, device="cpu") for c in xy)
     return aff, jxy, txy
 
 
@@ -125,7 +125,7 @@ def test_point_helpers_match_jax(pts):
         jg1.point_select(mask, pts["ja"], pts["jb"]),
     )
     assert np.array_equal(tg1.is_identity(pts["ta"]).numpy(), np.asarray(jg1.is_identity(pts["ja"])))
-    _same(tg1.identity((3,)), jg1.identity((3,)))
+    _same(tg1.identity((3,), device="cpu"), jg1.identity((3,)))
     live = [i for i in range(N) if pts["a"][i] is not None]
     sub_t = tuple(c[live] for c in pts["ta"])
     sub_j = tuple(c[np.asarray(live)] for c in pts["ja"])
@@ -133,7 +133,7 @@ def test_point_helpers_match_jax(pts):
 
 
 def test_host_conversions_match_jax(pts):
-    _same(tg1.points_to_device(pts["a"]), jg1.points_to_device(pts["a"]))
+    _same(tg1.points_to_device(pts["a"], device="cpu"), jg1.points_to_device(pts["a"]))
     assert tg1.points_from_device(pts["ta"]) == jg1.points_from_device(pts["ja"]) == pts["a"]
     stacked = np.stack([c.numpy() for c in pts["tb"]])
     assert tg1.points_from_host_stack(stacked) == pts["b"]

@@ -29,7 +29,7 @@ def _same_points(port_pts, jax_pts):
 
 @pytest.fixture(scope="module")
 def srs_pair():
-    return tkzg.setup(40, tau=987654321), jkzg.setup(40, tau=987654321)
+    return tkzg.setup(40, tau=987654321, device="cpu"), jkzg.setup(40, tau=987654321)
 
 
 def test_setup_matches_jax(srs_pair):
@@ -42,7 +42,7 @@ def test_setup_matches_jax(srs_pair):
 
 def test_convert_srs_is_bitwise(srs_pair):
     t, j = srs_pair
-    c = convert.srs(j)
+    c = convert.srs(j, device="cpu")
     for a, b in zip(c.g1_powers, t.g1_powers):
         assert torch.equal(a, b)
     assert (c.n, c.g2_gen, c.g2_tau) == (t.n, t.g2_gen, t.g2_tau)
@@ -50,9 +50,9 @@ def test_convert_srs_is_bitwise(srs_pair):
 
 def test_fixed_base_multi_segment_matches_single(monkeypatch):
     scalars = [0, 1, 2, R - 1] + [int(x) for x in np.random.default_rng(3).integers(1, 1 << 62, 66)]
-    whole = tkzg.fixed_base_mul_batch(scalars)
+    whole = tkzg.fixed_base_mul_batch(scalars, device="cpu")
     monkeypatch.setattr(tkzg, "_FB_SEG", 32)
-    seg = tkzg.fixed_base_mul_batch(scalars)
+    seg = tkzg.fixed_base_mul_batch(scalars, device="cpu")
     for a, b in zip(seg, whole):
         assert torch.equal(a, b)
     from halo2_rsa_tpu_torch.prover import g1_vec
@@ -78,7 +78,7 @@ def test_quotient_poly_matches_jax():
     rng = np.random.default_rng(5)
     coeffs = [int(x) % R for x in rng.integers(0, 1 << 62, 29)]
     z = 987654321987654321
-    qt, vt = tkzg.quotient_poly(tvf.from_ints(tkzg.FR, coeffs), z)
+    qt, vt = tkzg.quotient_poly(tvf.from_ints(tkzg.FR, coeffs, device="cpu"), z)
     qj, vj = jkzg.quotient_poly(jvf.from_ints(jkzg.FR, coeffs), z)
     assert vt == vj
     assert np.array_equal(tvf.limbs_to_ref(qt), np.asarray(qj))

@@ -41,7 +41,7 @@ def _same(port, jax_arr):
 def test_ntt_matches_jax(log_n):
     vals = _scalars(1 << log_n, log_n)
     aj = jvf.from_ints(jntt.FR, vals)
-    at = tvf.from_ints(tntt.FR, vals)
+    at = tvf.from_ints(tntt.FR, vals, device="cpu")
     fwd = tntt.ntt(at, log_n)
     _same(fwd, jntt.ntt(aj, log_n))
     back = tntt.intt(fwd, log_n)
@@ -55,21 +55,21 @@ def test_ntt_batch_and_stage_twiddles_match_jax():
     log_n = 6
     vals = _scalars(3 << log_n, 99)
     aj = jvf.from_ints(jntt.FR, vals).reshape(3, 1 << log_n, 16)
-    at = tvf.from_ints(tntt.FR, vals).reshape(3, 1 << log_n, 8)
+    at = tvf.from_ints(tntt.FR, vals, device="cpu").reshape(3, 1 << log_n, 8)
     _same(tntt.ntt_batch(at, log_n), jntt.ntt_batch(aj, log_n))
     _same(tntt.intt_batch(at, log_n), jntt.intt_batch(aj, log_n))
     for inverse in (False, True):
-        _same(tntt._twiddles_full(log_n, inverse), jntt._twiddles_full(log_n, inverse))
+        _same(tntt._twiddles_full(log_n, inverse, "cpu"), jntt._twiddles_full(log_n, inverse))
         # the on-the-fly stage twiddles (used above _TW_FULL_MAX_LOG_N)
         tw = tntt._ntt_graph(at, log_n, inverse, None)
-        assert torch.equal(tw, tntt._ntt_graph(at, log_n, inverse, tntt._twiddles_full(log_n, inverse)))
+        assert torch.equal(tw, tntt._ntt_graph(at, log_n, inverse, tntt._twiddles_full(log_n, inverse, "cpu")))
 
 
 @pytest.mark.parametrize("wb", [4, 8])
 def test_digits_match_jax(wb):
     vals = _scalars(37, wb)
     dj = jmsm.digits_from_scalar_limbs(jvf.from_ints(jntt.FR, vals, mont=False), wb)
-    dt = tmsm.digits_from_scalar_limbs(tvf.from_ints(tntt.FR, vals, mont=False), wb)
+    dt = tmsm.digits_from_scalar_limbs(tvf.from_ints(tntt.FR, vals, mont=False, device="cpu"), wb)
     assert np.array_equal(dt.numpy(), np.asarray(dj))
 
 
@@ -84,8 +84,8 @@ def _msm_case(p, n, seed, z_one):
     scs[0][:3] = [0, 1, R - 1]
     flat = [s for row in scs for s in row]
     sj = jvf.from_ints(jntt.FR, flat, mont=False).reshape(p, n, 16)
-    st = tvf.from_ints(tntt.FR, flat, mont=False).reshape(p, n, 8)
-    pj, pt = jg1.points_to_device(pts), tg1.points_to_device(pts)
+    st = tvf.from_ints(tntt.FR, flat, mont=False, device="cpu").reshape(p, n, 8)
+    pj, pt = jg1.points_to_device(pts), tg1.points_to_device(pts, device="cpu")
     got = tmsm.msm_many(st, pt, z_one=z_one)
     for c_t, c_j in zip(got, jmsm.msm_many(sj, pj, z_one=z_one)):
         _same(c_t, c_j)
@@ -107,7 +107,7 @@ def test_run_msm_matches_jax_and_host():
     pts[7] = None
     scs = _scalars(45, 12)
     want = tmsm.msm_host(scs, pts)
-    assert tmsm.run_msm(scs, pts) == want == jmsm.run_msm(scs, pts)
+    assert tmsm.run_msm(scs, pts, device="cpu") == want == jmsm.run_msm(scs, pts)
 
 
 def test_chunk_helpers_match_jax():

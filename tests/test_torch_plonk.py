@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 def _prove_golden(name):
     meta, want = golden.load(name)
     b, pubs = golden.build_circuit(name)
-    srs = kzg.setup(meta["srs_n"], tau=meta["tau"])
+    srs = kzg.setup(meta["srs_n"], tau=meta["tau"], device="cpu")
     pk, vk = plonk.keygen(checker.compile_circuit(b), srs, k=meta["k"])
     proof = plonk.prove(pk, b.values, pubs, rng=random.Random(meta["seed"]))
     return dict(meta=meta, want=want, pubs=pubs, vk=vk, proof=proof, builder=b, pk=pk)
@@ -64,11 +64,11 @@ def test_proof_bytes_match_golden(arith):
 
 def test_port_verify_accepts_and_rejects(arith):
     pubs = arith["pubs"]
-    assert plonk.verify(arith["vk"], arith["proof"], pubs)
-    assert not plonk.verify(arith["vk"], arith["proof"], [pubs[0] + 1])
+    assert plonk.verify(arith["vk"], arith["proof"], pubs, device="cpu")
+    assert not plonk.verify(arith["vk"], arith["proof"], [pubs[0] + 1], device="cpu")
     bad = bytearray(arith["proof"])
     bad[7] ^= 1
-    assert not plonk.verify(arith["vk"], bytes(bad), pubs)
+    assert not plonk.verify(arith["vk"], bytes(bad), pubs, device="cpu")
 
 
 def test_reference_verify_accepts_port_proof(arith):
@@ -79,7 +79,7 @@ def test_reference_verify_accepts_port_proof(arith):
 
 def test_blinding_draws_match_reference():
     for seed in (1, 2):
-        got = plonk._rand_blind(3, random.Random(seed))
+        got = plonk._rand_blind(3, random.Random(seed), "cpu")
         want = jplonk._rand_blind(3, random.Random(seed))
         from halo2_rsa_tpu_torch.fields import vecfield
 
@@ -100,7 +100,7 @@ def test_golden_mulmod_k10():
     case = _prove_golden("mulmod_k10")
     _check_vk(case)
     assert case["proof"] == case["want"]
-    assert plonk.verify(case["vk"], case["proof"], case["pubs"])
+    assert plonk.verify(case["vk"], case["proof"], case["pubs"], device="cpu")
 
 
 @pytest.mark.slow
@@ -118,7 +118,7 @@ def test_live_jax_prove_matches_port_from_converted_pk():
     srs = jkzg.setup(1 << 7, tau=424242)
     jpk, jvk = jplonk.keygen(jchecker.compile_circuit(b), srs, k=5)
     want = jplonk.prove(jpk, b.values, pubs, rng=random.Random(77))
-    pk = convert.proving_key(jpk)
+    pk = convert.proving_key(jpk, device="cpu")
     got = plonk.prove(pk, b.values, pubs, rng=random.Random(77))
     assert got == want
-    assert plonk.verify(convert.verifying_key(jvk), got, pubs)
+    assert plonk.verify(convert.verifying_key(jvk), got, pubs, device="cpu")

@@ -23,7 +23,7 @@ def case():
     meta, want = golden.load("lookup_k5")
     b, pubs = golden.build_circuit("lookup_k5")
     compiled = checker.compile_circuit(b)
-    srs = kzg.setup(meta["srs_n"], tau=meta["tau"])
+    srs = kzg.setup(meta["srs_n"], tau=meta["tau"], device="cpu")
     pk, vk = plonk.keygen(compiled, srs, k=meta["k"])
     proof = plonk.prove(pk, b.values, pubs, rng=random.Random(meta["seed"]))
     return dict(meta=meta, want=want, b=b, pubs=pubs, compiled=compiled, pk=pk, vk=vk, proof=proof)
@@ -40,8 +40,8 @@ def test_lookup_vk_matches_golden(case):
 def test_lookup_proof_bytes_match_golden(case):
     assert len(case["proof"]) == case["meta"]["proof_len"]
     assert case["proof"] == case["want"]
-    assert plonk.verify(case["vk"], case["proof"], case["pubs"])
-    assert not plonk.verify(case["vk"], case["proof"], [case["pubs"][0] + 1])
+    assert plonk.verify(case["vk"], case["proof"], case["pubs"], device="cpu")
+    assert not plonk.verify(case["vk"], case["proof"], [case["pubs"][0] + 1], device="cpu")
 
 
 def test_out_of_table_witness_rejected(case):
@@ -49,4 +49,4 @@ def test_out_of_table_witness_rejected(case):
     bad = list(case["b"].values)
     bad[int(idx[0])] += 1 << bits  # a sublimb escapes its table
     proof = plonk.prove(case["pk"], bad, case["pubs"], rng=random.Random(1))
-    assert not plonk.verify(case["vk"], proof, case["pubs"])
+    assert not plonk.verify(case["vk"], proof, case["pubs"], device="cpu")

@@ -36,7 +36,7 @@ def _pair(field, seed, mont=True):
     xs = _ints(field, N, seed)
     return (
         jvf.from_ints(jvf.consts(field), xs, mont=mont),
-        tvf.from_ints(tvf.consts(_port(field)), xs, mont=mont),
+        tvf.from_ints(tvf.consts(_port(field)), xs, mont=mont, device="cpu"),
         xs,
     )
 
@@ -120,7 +120,7 @@ def test_pow_series_matches_jax():
     field = ALL_FIELDS[0]
     fcj, fct = jvf.consts(field), tvf.consts(_port(field))
     for x, n in ((7, 1), (123456789, 37), (field.p - 2, 64)):
-        _same(tvf.pow_series(fct, x, n), jvf.pow_series(fcj, x, n))
+        _same(tvf.pow_series(fct, x, n, device="cpu"), jvf.pow_series(fcj, x, n))
 
 
 def test_layout_converters_round_trip(field):
@@ -132,7 +132,7 @@ def test_layout_converters_round_trip(field):
     assert np.array_equal(tvf.limbs_to_ref(port), ref)
     assert np.array_equal(tvf.limbs_to_ref(torch.from_numpy(port)), ref)
     assert tvf.to_ints(fct, port) == [x % field.p for x in xs]
-    assert tvf.to_ints(fct, tvf.from_ints(fct, xs, mont=False), mont=False) == xs
+    assert tvf.to_ints(fct, tvf.from_ints(fct, xs, mont=False, device="cpu"), mont=False) == xs
 
 
 def test_field_consts_n0inv_is_32_bit(field):
