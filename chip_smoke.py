@@ -14,7 +14,12 @@ the script exits non-zero without its final line):
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
 6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove;
+   one warm prove; then K4 at the shapes the flagship launches it with (one
+   launch of 8 doublings per Horner window, over the P points of one
+   ``msm_many`` call, P as recorded from one more warm prove) and at 2^16
+   points with 1 and 8 doublings, each bitwise against its plain version,
+   timed as a chain paced by the host and as the card's time alone (the
+   chain queued behind a spin kernel), beside an empty launch;
 7. P1, the integer op-rate probe: each of its 7 bodies at (16, 2^20), REPS
    64, bitwise against its plain version on the card, then the probe's own
    timed run (``bench.vpu_ops.run``) with its launches counted;
@@ -109,7 +114,7 @@ SASS_NAMES = {
     "K1": ("h2r_mont_mul_kernel", ()),
     "K2": ("h2r_g1_add_mixed_kernel", ()),
     "K3": ("h2r_g1_add_kernel", ()),
-    "K4": ("h2r_g1_double_kernel", ()),
+    "K4": ("h2r_g1_double_kernel", ()),  # one doubling's loop body, load, canonicalise, store
     "P2-lm": ("h2r_mont_mul_lm_kernel", ()),
     "P2-staged": ("h2r_mont_mul_staged_kernel", (P2_THREADS,)),
 }
@@ -383,6 +388,7 @@ def phase_flagship(report, kernels):
     counts = counts_now()
     f["launches"] = counts
     f["launches_per_warm_prove"] = per_prove
+    f["k4_calls_per_warm_prove"] = _k4_calls_of_one_prove(timed_prove)
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
          + ", ".join(f"{k_}={v}" for k_, v in counts.items())
@@ -392,6 +398,86 @@ def phase_flagship(report, kernels):
         kernels[key]["launches_per_warm_prove"] = per_prove[key]
         if v == 0:
             raise AssertionError(f"{key} was never launched on the flagship path")
+
+
+def _k4_calls_of_one_prove(timed_prove) -> list:
+    """(points, doublings) of each K4 launch of one more warm prove, read by
+    a pass-through wrapper around the K4 wrapper (launch counts are already
+    taken)."""
+    from halo2_rsa_tpu_torch.prover import cuda_g1
+
+    calls, real = [], cuda_g1.point_double
+
+    def recorder(fc, p, reps=1):
+        calls.append((p[0].numel() // p[0].shape[-1], reps))
+        return real(fc, p, reps)
+
+    cuda_g1.point_double = recorder
+    try:
+        timed_prove()
+    finally:
+        cuda_g1.point_double = real
+    return calls
+
+
+def phase_k4(report, kernels):
+    """K4 at the path's shapes and at 2^16 points, bitwise against its plain
+    version; ms per launch paced by the host (``chain_ms``) and the card's
+    alone (``queued_ms``); an empty launch (a zero-cycle spin) beside them."""
+    import collections
+
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms, queued_ms
+
+    fq = g1_vec.FQ
+    calls = report["flagship"]["k4_calls_per_warm_prove"]
+    per_shape = collections.Counter(calls)
+    if sum(per_shape.values()) != report["flagship"]["launches_per_warm_prove"]["K4"]:
+        raise AssertionError(f"K4 calls recorded {len(calls)} differ from the launch count")
+    big = 1 << 16
+    _, _, pts = _test_points(big, "cuda")
+    ident = g1_vec.identity((1,), device="cuda")
+    pts = tuple(torch.cat([c[:1], i, c[2:]]) for c, i in zip(pts, ident))  # lane 1 = (0 : 1 : 0)
+    shapes = [("path", n, reps) for n, reps in sorted(per_shape)] + \
+        [("parity", big, 1), ("parity", big, 8)]
+    empty = torch.zeros(1, device="cuda")
+    empty_chain = chain_ms(lambda x: (torch.cuda._sleep(0), x)[1], empty, 200)
+    empty_queued = queued_ms(lambda x: (torch.cuda._sleep(0), x)[1], empty, 200)
+    out, worst = [], 0
+    for kind, n, reps in shapes:
+        p = tuple(c[:n].contiguous() for c in pts)
+        got = cuda_g1.point_double(fq, p, reps)
+        want = cuda_g1.point_double_plain(fq, p, reps)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"K4 at {n} points, reps {reps}, differs from its plain version")
+        worst = max(worst, err)
+        iters = 200 if kind == "path" else 50
+        r = dict(kind=kind, n=n, reps=reps, launches_per_warm_prove=per_shape.get((n, reps), 0),
+                 max_abs_err=err,
+                 ms=queued_ms(lambda q: cuda_g1.point_double(fq, q, reps), p, iters),
+                 host_paced_ms=chain_ms(lambda q: cuda_g1.point_double(fq, q, reps), p, iters))
+        if kind == "path":
+            r["plain_ms"] = chain_ms(lambda q: cuda_g1.point_double_plain(fq, q, reps), p, 3)
+        out.append(r)
+        line(f"[6 K4] {kind} n={n} reps={reps}: bitwise equal | card {r['ms']:.4f} ms "
+             f"({r['ms'] / reps:.4f} per doubling), host-paced {r['host_paced_ms']:.4f} ms"
+             + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
+             + f" | {r['launches_per_warm_prove']} launches per warm prove")
+    line(f"[6 K4] empty launch: card {empty_queued:.4f} ms, host-paced {empty_chain:.4f} ms")
+    report["k4"] = dict(shapes=out, empty_launch_ms=empty_queued,
+                        empty_launch_host_paced_ms=empty_chain)
+    # the kernels line's K4 row: the path's largest shape
+    row = max((r for r in out if r["kind"] == "path"), key=lambda r: r["n"])
+    kernels["K4"].update(
+        source="halo2_rsa_tpu_torch/csrc/g1_double.cu", ms=row["ms"], plain_ms=row["plain_ms"],
+        max_abs_err=max(worst, kernels["K4"]["max_abs_err"]),
+        shape=f"{row['n']} points (the flagship's largest msm_many P), reps {row['reps']}; "
+              f"ms is the card's time per launch",
+    )
 
 
 def phase_p1(report, kernels):
@@ -498,6 +584,18 @@ def phase_p2(report, kernels):
               f"{mont_layout.THREADS}, ms, plain_ms and the bound at T={P2_THREADS}", **common)
 
 
+def _k4_part(report, sass, shape=None):
+    """(points, bytes per point, SASS per point) of one K4 launch: the K4
+    row's shape unless ``shape`` is given. A point costs ``reps`` times the
+    kernel's static count (one doubling's loop body plus the load, the final
+    canonicalisation and the store, so a little more than it runs)."""
+    if shape is None:
+        shape = max((r for r in report["k4"]["shapes"] if r["kind"] == "path"),
+                    key=lambda r: r["n"])
+    c = sass["K4"]
+    return (shape["n"], 6 * 32, {f: c[f] * shape["reps"] for f in ("fma", "alu", "issued", "int")})
+
+
 def phase_bounds(report, kernels):
     """Each kernel's least time: the larger of its bytes over HBM_BYTES_S
     and its SASS instructions over the pipes' rates at the card's maximum
@@ -526,7 +624,7 @@ def phase_bounds(report, kernels):
         "K1": [(1 << 20, 96, sass["K1"])],
         "K2": [(1 << 16, 8 * 32, sass["K2"])],
         "K3": [(1 << 16, 9 * 32, sass["K3"])],
-        "K4": [(1 << 16, 6 * 32, sass["K4"])],
+        "K4": [_k4_part(report, sass)],
         "P1": [(n_p1, 12, sass[f"P1/{b}"]) for b in bodies],
         "P2-lm": [(1 << P2_LOG_N, 96, sass["P2-lm"])],
         "P2-staged": [(1 << P2_LOG_N, 96, sass["P2-staged"])],
@@ -548,6 +646,17 @@ def phase_bounds(report, kernels):
         line(f"[9 bounds] {key}: {k['ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms "
              f"({k['bound_by']}; bytes {sum(mem):.4f}, pipes/issue {sum(ops):.4f}; int at P1's "
              f"rate {p1_rate_ms:.4f}) = {k['bound_ms'] / k['ms'] * 100:.1f} % of bound")
+    c = sass["K4"]
+    line(f"[9 bounds] K4 SASS per doubling (static count: loop body + load, canonicalise, "
+         f"store): FMA pipe {c['fma']}, ALU pipe {c['alu']}, issued {c['issued']}")
+    for r in report["k4"]["shapes"]:
+        n, nb, cnt = _k4_part(report, sass, r)
+        mem = n * nb / HBM_BYTES_S * 1e3
+        ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3
+        r.update(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations")
+        line(f"[9 bounds] K4 {r['kind']} n={n} reps={r['reps']}: {r['ms']:.4f} ms vs bound "
+             f"{r['bound_ms']:.6f} ms ({r['bound_by']}); empty launch "
+             f"{report['k4']['empty_launch_ms']:.4f} ms")
 
 
 def main() -> int:
@@ -560,6 +669,7 @@ def main() -> int:
     phase_parity(report, kernels)
     phase_golden(report)
     phase_flagship(report, kernels)
+    phase_k4(report, kernels)
     phase_p1(report, kernels)
     phase_p2(report, kernels)
     phase_bounds(report, kernels)

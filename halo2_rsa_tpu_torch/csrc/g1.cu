@@ -1,21 +1,19 @@
-// K2-K4: BN254 G1 point arithmetic, Renes-Costello-Batina 2015 complete
+// K2, K3: BN254 G1 point addition, Renes-Costello-Batina 2015 complete
 // formulas for a = 0, b3 = 3 * b = 9, projective (X, Y, Z) over Fq in
-// Montgomery form, one thread per point.
+// Montgomery form, one thread per point. (K4, the doubling, is g1_double.cu.)
 //
 //   K2 h2r_g1_add_mixed: algorithm 8, projective P1 + affine P2 (11 muls);
 //      replaces halo2_rsa_tpu/prover/pallas_g1.py:_point_add_mixed_kernel.
 //      Complete for any P1 provided P2 is a real affine point.
 //   K3 h2r_g1_add: algorithm 7, complete projective add (12 muls);
 //      replaces pallas_g1.py:_point_add_kernel.
-//   K4 h2r_g1_double: algorithm 9 (8 muls); replaces
-//      pallas_g1.py:_point_double_kernel.
 //
 // The formulas are written step for step as in the Pallas kernels, and every
 // field operation returns the canonical residue, so the projective outputs
 // equal the TPU kernels' bit for bit.
 //
-// What bounds them on an H100: a point op reads 5-6 and writes 3 coordinates
-// (32 bytes each, ~290 bytes) and runs 8-12 Montgomery products plus ~20
+// What bounds them on an H100: a point add reads 5-6 and writes 3 coordinates
+// (32 bytes each, ~290 bytes) and runs 11-12 Montgomery products plus ~20
 // modular adds (~4,000 integer instructions), so they are bound by integer
 // issue, not memory. The Pallas kernels kept every intermediate in VMEM; here
 // every intermediate lives in registers of the one thread that owns the
@@ -133,41 +131,6 @@ __global__ void h2r_g1_add_mixed_kernel(const uint32_t* __restrict__ x1p,
   fe_store(z3p, i, r);
 }
 
-__global__ void h2r_g1_double_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
-                                     const uint32_t* __restrict__ zp, uint32_t* __restrict__ x3p,
-                                     uint32_t* __restrict__ y3p, uint32_t* __restrict__ z3p,
-                                     long long n, FieldP f) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[H2R_LIMBS], y[H2R_LIMBS], z[H2R_LIMBS];
-  fe_load(xp, i, x);
-  fe_load(yp, i, y);
-  fe_load(zp, i, z);
-  uint32_t t0[H2R_LIMBS], t1[H2R_LIMBS], t2[H2R_LIMBS], xy[H2R_LIMBS], z3[H2R_LIMBS],
-      y3[H2R_LIMBS], u[H2R_LIMBS], r[H2R_LIMBS];
-  fe_mul(y, y, t0, f);
-  fe_mul(y, z, t1, f);
-  fe_mul(z, z, t2, f);
-  fe_mul(x, y, xy, f);
-  fe_add(t0, t0, z3, f);
-  fe_add(z3, z3, z3, f);
-  fe_add(z3, z3, z3, f);  // 8 Y^2
-  fe_mul9(t2, t2, f);     // b3 Z^2
-  fe_add(t0, t2, y3, f);
-  fe_add(t2, t2, u, f);
-  fe_add(u, t2, u, f);
-  fe_sub(t0, u, t0, f);
-  fe_mul(t1, z3, r, f);
-  fe_store(z3p, i, r);
-  fe_mul(t2, z3, u, f);  // X3 before the last step
-  fe_mul(t0, y3, r, f);
-  fe_add(u, r, r, f);
-  fe_store(y3p, i, r);
-  fe_mul(t0, xy, r, f);
-  fe_add(r, r, r, f);
-  fe_store(x3p, i, r);
-}
-
 namespace {
 FieldP make_field(const uint32_t* p_host, uint32_t n0inv) {
   FieldP f;
@@ -198,15 +161,5 @@ extern "C" int h2r_g1_add_mixed(const void* x1, const void* y1, const void* z1, 
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
       (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n,
       make_field(p_host, n0inv));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int h2r_g1_double(const void* x, const void* y, const void* z, void* x3, void* y3,
-                             void* z3, long long n, const uint32_t* p_host, uint32_t n0inv,
-                             void* stream) {
-  if (n <= 0) return 0;
-  h2r_g1_double_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)x3, (uint32_t*)y3,
-      (uint32_t*)z3, n, make_field(p_host, n0inv));
   return (int)cudaGetLastError();
 }

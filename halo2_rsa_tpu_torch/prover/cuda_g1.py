@@ -9,7 +9,9 @@ per thread:
   (``_point_add_mixed_kernel``); complete when P2 is a real affine point;
 * K3 :func:`point_add` — algorithm 7, complete projective add
   (``_point_add_kernel``);
-* K4 :func:`point_double` — algorithm 9 (``_point_double_kernel``).
+* K4 :func:`point_double` — algorithm 9 (``_point_double_kernel``), applied
+  ``reps`` times in one launch (``csrc/g1_double.cu``), as the JAX package's
+  Horner combine applies it in a ``fori_loop``.
 
 Every wrapper takes coordinate tensors of one shape, ``(..., 8)`` int32
 Montgomery Fq limbs. CUDA tensors launch the kernel; CPU tensors run the
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, mont_mul_u64, p_arg, to_int32, u64
+from ..fields.field import BN254_FQ
 from ..fields.vecfield import add_u64 as add, sub_u64 as sub
 
 LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_double": 0}
@@ -62,9 +65,21 @@ def point_add_mixed_plain(fc, p1, p2xy):
     return _plain(_point_add_mixed_u64, fc, p1, p2xy)
 
 
-def point_double_plain(fc, p):
-    """K4's plain version."""
-    return _plain(_point_double_u64, fc, p)
+def _check_reps(reps: int) -> None:
+    if reps < 1:
+        raise ValueError(f"point_double: reps must be >= 1, got {reps}")
+
+
+def point_double_plain(fc, p, reps: int = 1):
+    """K4's plain version: ``reps`` successive doublings."""
+    _check_reps(reps)
+
+    def doublings(fc, p):
+        for _ in range(reps):
+            p = _point_double_u64(fc, p)
+        return p
+
+    return _plain(doublings, fc, p)
 
 
 def _point_add_u64(fc, p1, p2):
@@ -129,7 +144,9 @@ def _point_double_u64(fc, p):
 # ---------------------------------------------------------------------------
 
 
-def _launch(fc, name: str, ins) -> tuple:
+def _launch(fc, name: str, ins, *extra) -> tuple:
+    """Launch ``h2r_<name>`` on ``ins``; ``extra`` C arguments follow the
+    element count."""
     check_kernel_args(*ins)
     from ..utils.cuda_build import library
 
@@ -137,7 +154,7 @@ def _launch(fc, name: str, ins) -> tuple:
     n = ins[0].numel() // LIMBS
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
     fn = getattr(library(), "h2r_" + name)
-    err = fn(*[t.data_ptr() for t in ins + outs], n, p_arg(fc), fc.n0inv32, stream)
+    err = fn(*[t.data_ptr() for t in ins + outs], n, *extra, p_arg(fc), fc.n0inv32, stream)
     check_launch(err, "h2r_" + name)
     LAUNCHES[name] += 1
     return outs
@@ -157,8 +174,13 @@ def point_add_mixed(fc, p1, p2xy):
     return _launch(fc, "g1_add_mixed", tuple(p1) + tuple(p2xy))
 
 
-def point_double(fc, p):
-    """K4: projective 2P."""
+def point_double(fc, p, reps: int = 1):
+    """K4: projective 2^reps · P, ``reps`` doublings in one launch. The
+    kernel is built for BN254 Fq (its curve constant b3 = 9 and its field
+    core's constants), so any other field raises."""
     if p[0].device.type == "cpu":
-        return point_double_plain(fc, p)
-    return _launch(fc, "g1_double", tuple(p))
+        return point_double_plain(fc, p, reps)
+    _check_reps(reps)
+    if fc.field.p != BN254_FQ.p:
+        raise ValueError(f"K4 is built for BN254 Fq, not {fc.field.name}")
+    return _launch(fc, "g1_double", tuple(p), reps)

@@ -37,9 +37,10 @@ def point_add_mixed(p1, p2xy):
     return cuda_g1.point_add_mixed(FQ, c[:3], c[3:])
 
 
-def point_double(p):
-    """Complete projective doubling (RCB15 algorithm 9, 8 muls): K4."""
-    return cuda_g1.point_double(FQ, _one_shape(tuple(p)))
+def point_double(p, reps: int = 1):
+    """``reps`` complete projective doublings (RCB15 algorithm 9, 8 muls
+    each), 2^reps · P: one K4 launch."""
+    return cuda_g1.point_double(FQ, _one_shape(tuple(p)), reps)
 
 
 def point_neg(p):

@@ -12,7 +12,8 @@ coordinates:
      chunk offsets spliced in only at the bucket boundaries;
   4. bucket sums by prefix-sum differencing at ``searchsorted`` boundaries;
   5. sum_b b * P_b via suffix sums and a halving tree (K3), then a Horner
-     combine over windows (K4 doublings, K3 adds).
+     combine over windows (per window one K4 launch of ``window_bits``
+     doublings, then a K3 add).
 
 ``fori_loop``/``scan`` bodies are Python loops over torch ops.
 """
@@ -169,8 +170,7 @@ def _window_combine(window_sums, window_bits: int):
     p, w = window_sums[0].shape[:2]
     res = identity((p,), device=window_sums[0].device)
     for i in reversed(range(w)):
-        for _ in range(window_bits):
-            res = point_double(res)
+        res = point_double(res, window_bits)
         res = point_add(res, tuple(c[:, i] for c in window_sums))
     return res
 

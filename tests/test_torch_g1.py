@@ -100,6 +100,31 @@ def test_k4_point_double_matches_jax_and_host(pts):
     assert tg1.points_from_device(got) == [curve.g1_add(p, p) for p in pts["a"]]
 
 
+@pytest.mark.parametrize("reps", [1, 2, 8])
+def test_k4_reps_match_repeated_jax_doublings(pts, reps):
+    """reps doublings in one call equal reps successive JAX doublings, over
+    14 lanes (not a power of two): the 16-point batch's first 13 lanes (two
+    of them (0 : Z : 0)) and the identity (0 : 1 : 0)."""
+    ident = tg1.identity((1,), device="cpu")
+    tp = tuple(torch.cat([c[:13], i]) for c, i in zip(pts["ta"], ident))
+    want = tuple(np.concatenate([c[:13], i]) for c, i in zip(pts["ja"], jg1.identity((1,))))
+    for _ in range(reps):
+        want = jg1.point_double(want)
+    got = cuda_g1.point_double_plain(tg1.FQ, tp, reps)
+    _same(got, want)
+    _same(tg1.point_double(tp, reps), want)
+    aff = pts["a"][:13] + [None]
+    assert tg1.points_from_device(got) == [curve.g1_mul(p, 1 << reps) if p else None for p in aff]
+
+
+def test_k4_rejects_fewer_than_one_doubling(pts):
+    for reps in (0, -1):
+        with pytest.raises(ValueError):
+            cuda_g1.point_double_plain(tg1.FQ, pts["ta"], reps)
+        with pytest.raises(ValueError):
+            tg1.point_double(pts["ta"], reps)
+
+
 @pytest.mark.slow
 def test_k2_k3_k4_plain_match_pallas_interpret(pts):
     _, jxy, txy = _affine_operand(pts)

@@ -7,13 +7,16 @@ same comparisons at the main path's shapes). Every comparison is bitwise.
 The argument checks and the CPU dispatch run everywhere.
 """
 
+import os
 import random
+import re
 
 import pytest
 import torch
 
 from halo2_rsa_tpu_torch.bench import mont_layout, vpu_ops
 from halo2_rsa_tpu_torch.fields import ALL_FIELDS, cuda_mont, vecfield
+from halo2_rsa_tpu_torch.fields.field import BN254_FQ
 from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec
 from halo2_rsa_tpu_torch.utils import cuda_build
 
@@ -59,12 +62,22 @@ def test_k2_k3_k4_kernels_match_plain(cuda):
     for kern, plain, args in (
         (cuda_g1.point_add, cuda_g1.point_add_plain, (p1, p2)),
         (cuda_g1.point_add_mixed, cuda_g1.point_add_mixed_plain, (p1m, xy)),
-        (cuda_g1.point_double, cuda_g1.point_double_plain, (p1,)),
     ):
         got = kern(fq, *args)
         want = plain(fq, *args)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    # K4 at the Horner combine's shapes (a few points, 8 doublings) and at
+    # 2^16 points (the 1000 tiled); lane 1 is the identity (0 : 1 : 0)
+    tiled = tuple(c.repeat(66, 1)[: 1 << 16].contiguous() for c in p1)
+    for n in (3, 37, 1 << 16):
+        pn = tuple(c[:n] for c in tiled)
+        for reps in (1, 8):
+            before = cuda_g1.LAUNCHES["g1_double"]
+            got = cuda_g1.point_double(fq, pn, reps)
+            assert cuda_g1.LAUNCHES["g1_double"] == before + 1
+            for g, w in zip(got, cuda_g1.point_double_plain(fq, pn, reps)):
+                assert torch.equal(g, w), (n, reps)
 
 
 @pytest.mark.cuda
@@ -77,6 +90,53 @@ def test_kernel_wrappers_reject_bad_arguments(cuda):
         cuda_mont.mont_mul(fc, a.t().contiguous().t(), a)
     with pytest.raises(ValueError):
         cuda_mont.mont_mul(fc, a, a[:2])
+
+
+@pytest.mark.cuda
+def test_k4_wrapper_rejects_bad_reps_and_other_fields(cuda):
+    pts = _points(4, cuda)
+    before = cuda_g1.LAUNCHES["g1_double"]
+    for reps in (0, -3):
+        with pytest.raises(ValueError):
+            cuda_g1.point_double(g1_vec.FQ, pts, reps)
+    for field in ALL_FIELDS:
+        if field.p != g1_vec.FQ.field.p:
+            with pytest.raises(ValueError):
+                cuda_g1.point_double(vecfield.consts(field), pts)
+    assert cuda_g1.LAUNCHES["g1_double"] == before
+
+
+def test_k4_field_core_constants_and_headroom():
+    """csrc/fq_lazy.cuh's BN254 Fq constants, the bounds its comment relies
+    on, and its quotient estimate at the edges: for v = c * a, a < 2q and c
+    in {3, 8, 9}, v - k q must land in [0, 2q)."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fq_lazy.cuh")) as fh:
+        src = fh.read()
+
+    def limbs(text):
+        words = re.findall(r"0x([0-9a-f]{8})u", text)
+        assert len(words) == 8
+        return sum(int(w, 16) << (32 * j) for j, w in enumerate(words))
+
+    def const(name):
+        return int(re.search(name + r" = 0x([0-9a-f]+)u;", src).group(1), 16)
+
+    q = BN254_FQ.p
+    assert limbs(re.search(r"#define H2R_FQ_LIMBS(.*?)\n\n", src, re.S).group(1)) == q
+    assert limbs(re.search(r"uint32_t q2\(int j\).*?\{(.*?)\};", src, re.S).group(1)) == 2 * q
+    nq = limbs(re.search(r"uint32_t nq\(int j\).*?\{(.*?)\};", src, re.S).group(1))
+    assert nq == (1 << 256) - q
+    assert const("N0INV") == vecfield.consts(BN254_FQ).n0inv32
+    recip = const("QTOP_RECIP")
+    assert recip == (1 << 59) // ((q >> 226) + 1) < 1 << 32
+    assert 4 * q < 1 << 256 and 18 * q < 1 << 258 and 3 * q * (1 + (1 << 32)) < 1 << 288
+    rng = random.Random(9)
+    for c in (3, 8, 9):
+        edges = [k * q + d for k in range(2 * c) for d in (-c, -1, 0, 1, c)]
+        for v in edges + [c * (2 * q - 1)] + [c * rng.randrange(2 * q) for _ in range(200)]:
+            if 0 <= v < 2 * q * c:
+                k = ((v >> 226) * recip) >> 59
+                assert 0 <= v - k * q < 2 * q, (c, v)
 
 
 def test_argument_checks_reject_cpu_and_bad_layouts():
