@@ -23,18 +23,14 @@
 
 namespace fq {
 
-// q, little-endian 32-bit limbs (a macro so host code can check a field against it)
-#define H2R_FQ_LIMBS                                                                    \
-  0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du, 0xb85045b6u, 0xe131a029u, \
-      0x30644e72u
-
 constexpr int N = 8;
 constexpr uint32_t N0INV = 0xe4866389u;  // -q^-1 mod 2^32
 // q >> 226 = 0x0c19139c; floor(2^59 / ((q >> 226) + 1))
 constexpr uint32_t QTOP_RECIP = 0xa948e8c0u;
 
-__device__ __forceinline__ uint32_t q(int j) {
-  constexpr uint32_t k[N] = {H2R_FQ_LIMBS};
+__device__ __forceinline__ uint32_t q(int j) {  // q, little-endian 32-bit limbs
+  constexpr uint32_t k[N] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+                             0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
   return k[j];
 }
 __device__ __forceinline__ uint32_t q2(int j) {  // 2q

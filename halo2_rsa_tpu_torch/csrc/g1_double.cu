@@ -72,16 +72,12 @@ __global__ void h2r_g1_double_kernel(const uint32_t* __restrict__ xp, const uint
   }
 }
 
-// p_host / n0inv name the field the caller means; the kernel's constants are
-// BN254 Fq's, so any other field is refused.
+// The wrapper (cuda_g1.point_double) refuses any field but BN254 Fq, whose
+// constants the kernel has built in.
 extern "C" int h2r_g1_double(const void* x, const void* y, const void* z, void* x3, void* y3,
-                             void* z3, long long n, int reps, const uint32_t* p_host,
-                             uint32_t n0inv, void* stream) {
+                             void* z3, long long n, int reps, void* stream) {
   if (n <= 0) return 0;
-  if (reps < 1 || n0inv != fq::N0INV) return (int)cudaErrorInvalidValue;
-  constexpr uint32_t kq[fq::N] = {H2R_FQ_LIMBS};
-  for (int j = 0; j < fq::N; ++j)
-    if (p_host[j] != kq[j]) return (int)cudaErrorInvalidValue;
+  if (reps < 1) return (int)cudaErrorInvalidValue;
   // The Horner combine launches K4 over P <= 32 points: one warp holds them,
   // and the three other warps of a 128-thread block would only be scheduled
   // to exit. Above 32 points the block is 128 threads, as for K2 and K3.

@@ -144,7 +144,7 @@ def _point_double_u64(fc, p):
 # ---------------------------------------------------------------------------
 
 
-def _launch(fc, name: str, ins, *extra) -> tuple:
+def _launch(name: str, ins, *extra) -> tuple:
     """Launch ``h2r_<name>`` on ``ins``; ``extra`` C arguments follow the
     element count."""
     check_kernel_args(*ins)
@@ -154,7 +154,7 @@ def _launch(fc, name: str, ins, *extra) -> tuple:
     n = ins[0].numel() // LIMBS
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
     fn = getattr(library(), "h2r_" + name)
-    err = fn(*[t.data_ptr() for t in ins + outs], n, *extra, p_arg(fc), fc.n0inv32, stream)
+    err = fn(*[t.data_ptr() for t in ins + outs], n, *extra, stream)
     check_launch(err, "h2r_" + name)
     LAUNCHES[name] += 1
     return outs
@@ -164,14 +164,14 @@ def point_add(fc, p1, p2):
     """K3: complete projective P1 + P2."""
     if p1[0].device.type == "cpu":
         return point_add_plain(fc, p1, p2)
-    return _launch(fc, "g1_add", tuple(p1) + tuple(p2))
+    return _launch("g1_add", tuple(p1) + tuple(p2), p_arg(fc), fc.n0inv32)
 
 
 def point_add_mixed(fc, p1, p2xy):
     """K2: projective P1 + affine (x2, y2)."""
     if p1[0].device.type == "cpu":
         return point_add_mixed_plain(fc, p1, p2xy)
-    return _launch(fc, "g1_add_mixed", tuple(p1) + tuple(p2xy))
+    return _launch("g1_add_mixed", tuple(p1) + tuple(p2xy), p_arg(fc), fc.n0inv32)
 
 
 def point_double(fc, p, reps: int = 1):
@@ -183,4 +183,4 @@ def point_double(fc, p, reps: int = 1):
     _check_reps(reps)
     if fc.field.p != BN254_FQ.p:
         raise ValueError(f"K4 is built for BN254 Fq, not {fc.field.name}")
-    return _launch(fc, "g1_double", tuple(p), reps)
+    return _launch("g1_double", tuple(p), reps)

@@ -7,8 +7,9 @@ interface, loaded with ``ctypes``. The library lands in
 an edit to any source builds anew and an unchanged tree reuses the last
 build. Nothing is built at import time: the first kernel launch builds.
 
-:func:`sass_opcodes` reads the built library's machine code (``cuobjdump
--sass``) so that a run can count each kernel's instructions.
+:func:`sass_listing` reads the built library's machine code (``cuobjdump
+-sass``) so that a run can count each kernel's instructions, and
+:func:`loop_split` tells a loop's body from the code that runs once.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ SIGNATURES = {
     "h2r_mont_mul": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
     "h2r_g1_add": [_VP] * 9 + [_LL, _P32, _U32, _VP],
     "h2r_g1_add_mixed": [_VP] * 8 + [_LL, _P32, _U32, _VP],
-    "h2r_g1_double": [_VP] * 6 + [_LL, ctypes.c_int, _P32, _U32, _VP],
+    "h2r_g1_double": [_VP] * 6 + [_LL, ctypes.c_int, _VP],
     "h2r_int_ops": [ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
     "h2r_mont_mul_lm": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
     "h2r_mont_mul_staged": [_VP, _VP, _VP, _LL, _P32, _U32, ctypes.c_int, _VP],
@@ -149,28 +150,59 @@ INT_OPCODES = frozenset({
 # per clock in all.
 FMA_PIPE_OPCODES = frozenset({"IMAD", "IMUL"})
 _SASS_FUNC = re.compile(r"^\s*Function : (\S+)")
-_SASS_INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+_SASS_INSN = re.compile(
+    r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)")
+_BRA_TARGET = re.compile(r"^\s*0x([0-9a-f]+)\s*$")
 
 
-def sass_opcodes(lib_path: str | None = None) -> dict[str, collections.Counter]:
-    """{kernel symbol: Counter of full SASS opcodes (e.g. ``IMAD.WIDE.U32``)}
-    of the built library, from ``cuobjdump -sass`` (needs the toolkit)."""
+def sass_listing(lib_path: str | None = None) -> dict[str, list[tuple[int, str, str]]]:
+    """{kernel symbol: [(address, full opcode, operands), ...]} of the built
+    library's machine code, from ``cuobjdump -sass`` (needs the toolkit)."""
     lib_path = lib_path or build()
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed ({proc.returncode}):\n{proc.stderr}")
-    out: dict[str, collections.Counter] = {}
+    return parse_sass(proc.stdout)
+
+
+def parse_sass(text: str) -> dict[str, list[tuple[int, str, str]]]:
+    """:func:`sass_listing` of ``cuobjdump -sass`` output."""
+    out: dict[str, list] = {}
     cur = None
-    for text in proc.stdout.splitlines():
-        m = _SASS_FUNC.match(text)
+    for row in text.splitlines():
+        m = _SASS_FUNC.match(row)
         if m:
-            cur = out.setdefault(m.group(1), collections.Counter())
+            cur = out.setdefault(m.group(1), [])
             continue
-        m = _SASS_INSN.match(text)
+        m = _SASS_INSN.match(row)
         if m and cur is not None:
-            cur[m.group(1)] += 1
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
     return out
+
+
+def sass_opcodes(lib_path: str | None = None) -> dict[str, collections.Counter]:
+    """{kernel symbol: Counter of full SASS opcodes (e.g. ``IMAD.WIDE.U32``)}."""
+    return {sym: collections.Counter(op for _, op, _ in insns)
+            for sym, insns in sass_listing(lib_path).items()}
+
+
+def loop_split(insns: list[tuple[int, str, str]]) -> tuple[collections.Counter, collections.Counter]:
+    """(opcodes of the loop body, opcodes of the rest) of a kernel with one
+    loop: the body runs from the target of the one backward branch to that
+    branch, and each pass issues all of it. The branch of a kernel's tail
+    onto itself is not a loop."""
+    back = []
+    for addr, op, args in insns:
+        m = _BRA_TARGET.match(args)
+        if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    if len(back) != 1:
+        raise ValueError(f"expected one backward branch, found {len(back)}: {back}")
+    lo, hi = back[0]
+    body = collections.Counter(op for addr, op, _ in insns if lo <= addr <= hi)
+    rest = collections.Counter(op for addr, op, _ in insns if not lo <= addr <= hi)
+    return body, rest
 
 
 def int_instructions(ops: collections.Counter) -> int:
@@ -187,12 +219,17 @@ def pipe_counts(ops: collections.Counter) -> dict[str, int]:
                 issued=sum(n for op, n in ops.items() if op != "NOP"))
 
 
-def kernel_opcodes(sass: dict, name: str, *template_args: int) -> collections.Counter:
-    """The one kernel in ``sass`` whose mangled symbol holds ``name`` (and,
-    for a template, the integer arguments in order)."""
+def kernel_symbol(sass: dict, name: str, *template_args: int) -> str:
+    """The one mangled symbol in ``sass`` that holds ``name`` (and, for a
+    template, the integer arguments in order)."""
     pat = re.escape(name) + ("I" + "".join(f"Li{a}E" for a in template_args) + "E"
                              if template_args else r"(?!I)")
     hits = [k for k in sass if re.search(pat, k)]
     if len(hits) != 1:
         raise KeyError(f"{name}{list(template_args)}: {len(hits)} kernels match in the SASS")
-    return sass[hits[0]]
+    return hits[0]
+
+
+def kernel_opcodes(sass: dict, name: str, *template_args: int) -> collections.Counter:
+    """The opcodes of :func:`kernel_symbol`'s kernel."""
+    return sass[kernel_symbol(sass, name, *template_args)]

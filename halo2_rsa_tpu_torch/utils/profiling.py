@@ -76,30 +76,3 @@ def chain_ms(step, x, iters: int) -> float:
     end.record()
     torch.cuda.synchronize(lead.device)
     return start.elapsed_time(end) / iters
-
-
-def queued_ms(step, x, iters: int, lead_ms: float = 20.0) -> float:
-    """Mean device ms of ``step`` over a chain ``x = step(x)`` of ``iters``
-    calls queued behind a spin kernel of about ``lead_ms``: the host has
-    enqueued the whole chain before the card reaches it, so the time is the
-    card's (launch gaps included), not the host's. A chain that takes the
-    host longer than the spin is timed again behind a longer one. CUDA
-    only."""
-    x = step(x)
-    lead = x if isinstance(x, torch.Tensor) else x[0]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
-        torch.cuda.synchronize(lead.device)
-        torch.cuda._sleep(int(lead_ms * 2e6))  # cycles: ~1 ms per 2e6 at <= 2 GHz
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            x = step(x)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        torch.cuda.synchronize(lead.device)
-        if host_ms < 0.5 * lead_ms:
-            return start.elapsed_time(end) / iters
-        lead_ms *= 4
-    raise RuntimeError(f"queued_ms: the host needed {host_ms:.1f} ms to enqueue the chain")

@@ -1,148 +1,71 @@
 #!/usr/bin/env python3
-"""Time K4, the point doubling kernel of ``halo2_rsa_tpu_torch``, of one
-checkout at the prover's shapes, so that two commits can be compared inside
-one run on the same card.
+"""Time K4, the point doubling kernel of ``halo2_rsa_tpu_torch``, of another
+checkout at the shapes ``chip_smoke.py`` timed it at, so that two commits can
+be compared inside one run on the same card.
 
-    python3 scripts/time_k4.py [--root DIR] [--path-n 2,5,7,11] [--out FILE]
-    python3 scripts/time_k4.py --device cpu --path-n 3 --big-log-n 6   # rehearsal
+    python3 chip_smoke.py                       # records the shapes
+    python3 scripts/time_k4.py [--root DIR]     # DIR: the checkout to time
 
-``--root`` names the checkout whose package is imported (default: the one
-holding this script); its kernels build inside it. A checkout whose K4 takes
-no ``reps`` doubles a Horner window as 8 launches of one doubling; a newer
-one as one launch of 8. Shapes: each n of ``--path-n`` with 8 doublings (one
-window of the flagship MSM's Horner combine over n polys), and 2^16 points
-with 1 and with 8 doublings. Each shape is checked bitwise against the plain
-version, then timed per window of ``reps`` doublings: on the card alone (the
-chain queued behind a spin kernel) and paced by the host (a plain chain). An
-empty launch (a zero-cycle spin) is timed the same two ways. The kernel's
-SASS is counted by pipe, and ptxas's registers and spills are read from a
-fresh build's log. One JSON line goes to stdout and is appended to ``--out``.
+The shapes are read from ``chiprun_out/chip_smoke.json`` (phase 6: the
+flagship's Horner windows and 2^16 points with 1 and 8 doublings); the
+measurement is ``chip_smoke.k4_times`` run on the wrappers of ``--root``'s
+package (default: this checkout), whose kernels build inside it. One JSON
+line goes to stdout and is appended to ``chiprun_out/time_k4.jsonl``.
 """
 
 import argparse
-import contextlib
-import importlib.util
 import inspect
-import io
 import json
 import os
-import random
-import re
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def own_profiling():
-    """This checkout's ``utils/profiling.py`` (``chain_ms``, ``queued_ms``),
-    loaded by path: ``--root`` may name an older checkout without them."""
-    path = os.path.join(HERE, "halo2_rsa_tpu_torch", "utils", "profiling.py")
-    spec = importlib.util.spec_from_file_location("_time_k4_profiling", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def ptxas_usage(log: str, name: str) -> dict:
-    """Registers and spill bytes of the entry function whose symbol holds
-    ``name``, from ``nvcc -Xptxas=-v`` output."""
-    out, cur = {}, None
-    for text in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", text)
-        if m:
-            cur = m.group(1) if name in m.group(1) else None
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
-        if m:
-            out.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", text)
-        if m:
-            out["registers"] = int(m.group(1))
-    return out
+OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
-    # the flagship's msm_many calls commit P = 2, 5, 7 and 11 polys (chip_smoke.py phase 6)
-    ap.add_argument("--path-n", default="2,5,7,11", help="comma-separated point counts")
-    ap.add_argument("--big-log-n", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=8)
-    ap.add_argument("--iters", type=int, default=100)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out", "time_k4.jsonl"))
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    root = os.path.abspath(ap.parse_args().root)
+    sys.path.insert(0, HERE)
+    import chip_smoke  # this checkout's, imported before --root's package is on the path
+
     sys.path.insert(0, root)
     import torch
 
-    from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
-    prof = own_profiling()
-
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         raise SystemExit("time_k4: no CUDA device")
-    res = dict(root=os.path.relpath(root, HERE), device=args.device)
-    if args.device == "cuda":
-        from halo2_rsa_tpu_torch.utils import cuda_build
-
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            lib = cuda_build.build(verbose=True)
-        ops = cuda_build.kernel_opcodes(cuda_build.sass_opcodes(lib), "h2r_g1_double_kernel")
-        res.update(card=torch.cuda.get_device_name(0), sass=cuda_build.pipe_counts(ops),
-                   ptxas=ptxas_usage(buf.getvalue(), "h2r_g1_double_kernel"),
-                   smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                       "--format=csv,noheader"],
-                                      capture_output=True, text=True).stdout.strip())
+    with open(os.path.join(OUT_DIR, "chip_smoke.json")) as fh:
+        shapes = [(r["kind"], r["n"], r["reps"]) for r in json.load(fh)["k4"]["shapes"]]
     fq = g1_vec.FQ
+    # a checkout from before K4 took `reps` doubles a window as `reps`
+    # launches; this goes once no checkout to compare lacks `reps`
     has_reps = "reps" in inspect.signature(cuda_g1.point_double).parameters
-    res["launches_per_window"] = 1 if has_reps else args.reps
 
-    def window(kern, reps):
+    def window(kern):
         if has_reps:
-            return lambda p: kern(fq, p, reps)
+            return lambda p, reps: kern(fq, p, reps)
 
-        def step(p):
+        def step(p, reps):
             for _ in range(reps):
                 p = kern(fq, p)
             return p
 
         return step
 
-    rng = random.Random(12)
-    base = [curve.g1_mul(curve.G1_GEN, rng.randrange(1, curve.R)) for _ in range(64)]
-    big = 1 << args.big_log_n
-    pts = g1_vec.points_to_device([None] + base[1:], device=args.device)
-    pts = tuple(c.repeat(big // 64 + 1, 1)[:big].contiguous() for c in pts)  # lane 0 = (0 : 1 : 0)
-    shapes = [("path", int(n), args.reps) for n in args.path_n.split(",")]
-    shapes += [("parity", big, 1), ("parity", big, args.reps)]
-    out = []
-    for kind, n, reps in shapes:
-        p = tuple(c[:n].contiguous() for c in pts)
-        got = window(cuda_g1.point_double, reps)(p)
-        want = window(cuda_g1.point_double_plain, reps)(p)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"K4 differs from its plain version at n={n}, reps={reps}")
-        r = dict(kind=kind, n=n, reps=reps)
-        kern = window(cuda_g1.point_double, reps)
-        if args.device == "cuda":
-            r["ms"] = prof.queued_ms(kern, p, args.iters)
-        r["host_paced_ms"] = prof.chain_ms(kern, p, args.iters)
-        out.append(r)
-    res["shapes"] = out
-    if args.device == "cuda":
-        z = (torch.zeros(1, device="cuda"),)
-        spin = lambda x: (torch.cuda._sleep(0), x)[1]  # noqa: E731
-        res["empty_launch_ms"] = prof.queued_ms(spin, z, 200)
-        res["empty_launch_host_paced_ms"] = prof.chain_ms(spin, z, 200)
-    text = json.dumps(res)
+    rows = chip_smoke.k4_times(window(cuda_g1.point_double), window(cuda_g1.point_double_plain),
+                               shapes, chip_smoke.k4_points())
+    text = json.dumps(dict(
+        root=os.path.relpath(root, HERE), card=torch.cuda.get_device_name(0),
+        smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip(),
+        one_launch_per_window=has_reps, shapes=rows))
     print(text, flush=True)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "a") as fh:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "time_k4.jsonl"), "a") as fh:
         fh.write(text + "\n")
     return 0
 

@@ -4,7 +4,8 @@ versions.
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
-The argument checks and the CPU dispatch run everywhere.
+The argument checks, the CPU dispatch, the SASS loop split and a limb-level
+model of K4's lazy field core (csrc/fq_lazy.cuh) run everywhere.
 """
 
 import os
@@ -106,28 +107,36 @@ def test_k4_wrapper_rejects_bad_reps_and_other_fields(cuda):
     assert cuda_g1.LAUNCHES["g1_double"] == before
 
 
-def test_k4_field_core_constants_and_headroom():
-    """csrc/fq_lazy.cuh's BN254 Fq constants, the bounds its comment relies
-    on, and its quotient estimate at the edges: for v = c * a, a < 2q and c
-    in {3, 8, 9}, v - k q must land in [0, 2q)."""
+def _fq_lazy_constants() -> dict:
+    """q, 2q, 2^256 - q, N0INV and QTOP_RECIP as csrc/fq_lazy.cuh spells
+    them."""
     with open(os.path.join(cuda_build.CSRC_DIR, "fq_lazy.cuh")) as fh:
         src = fh.read()
 
-    def limbs(text):
-        words = re.findall(r"0x([0-9a-f]{8})u", text)
+    def limbs(fn):
+        body = re.search(r"uint32_t " + fn + r"\(int j\).*?\{(.*?)\};", src, re.S).group(1)
+        words = re.findall(r"0x([0-9a-f]{8})u", body)
         assert len(words) == 8
         return sum(int(w, 16) << (32 * j) for j, w in enumerate(words))
 
     def const(name):
         return int(re.search(name + r" = 0x([0-9a-f]+)u;", src).group(1), 16)
 
+    return dict(q=limbs("q"), q2=limbs("q2"), nq=limbs("nq"), n0inv=const("N0INV"),
+                recip=const("QTOP_RECIP"))
+
+
+def test_k4_field_core_constants_and_headroom():
+    """csrc/fq_lazy.cuh's BN254 Fq constants, the bounds its comment relies
+    on, and its quotient estimate at the edges: for v = c * a, a < 2q and c
+    in {3, 8, 9}, v - k q must land in [0, 2q)."""
+    k = _fq_lazy_constants()
     q = BN254_FQ.p
-    assert limbs(re.search(r"#define H2R_FQ_LIMBS(.*?)\n\n", src, re.S).group(1)) == q
-    assert limbs(re.search(r"uint32_t q2\(int j\).*?\{(.*?)\};", src, re.S).group(1)) == 2 * q
-    nq = limbs(re.search(r"uint32_t nq\(int j\).*?\{(.*?)\};", src, re.S).group(1))
-    assert nq == (1 << 256) - q
-    assert const("N0INV") == vecfield.consts(BN254_FQ).n0inv32
-    recip = const("QTOP_RECIP")
+    assert k["q"] == q
+    assert k["q2"] == 2 * q
+    assert k["nq"] == (1 << 256) - q
+    assert k["n0inv"] == vecfield.consts(BN254_FQ).n0inv32
+    recip = k["recip"]
     assert recip == (1 << 59) // ((q >> 226) + 1) < 1 << 32
     assert 4 * q < 1 << 256 and 18 * q < 1 << 258 and 3 * q * (1 + (1 << 32)) < 1 << 288
     rng = random.Random(9)
@@ -137,6 +146,271 @@ def test_k4_field_core_constants_and_headroom():
             if 0 <= v < 2 * q * c:
                 k = ((v >> 226) * recip) >> 59
                 assert 0 <= v - k * q < 2 * q, (c, v)
+
+
+# ---------------------------------------------------------------------------
+# A limb-level model of csrc/fq_lazy.cuh: each asm chain instruction by
+# instruction on 32-bit limbs with the carry flag, as PTX defines add.cc,
+# addc, sub.cc, subc, mad.lo/hi.cc and madc.lo/hi. An instruction without .cc
+# at the end of a chain loses its carry; the model returns that carry so the
+# tests can require it to be zero (or, where the chain works mod 2^256 on
+# purpose, what it must be).
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+FQL = _fq_lazy_constants()
+
+
+def _limbs(v):
+    return [(v >> (32 * j)) & M32 for j in range(8)]
+
+
+def _int(limbs):
+    return sum(w << (32 * j) for j, w in enumerate(limbs))
+
+
+class _Chain:
+    def __init__(self):
+        self.cf = 0
+
+    def _out(self, s, cc):
+        if cc:
+            self.cf = s >> 32
+            return s & M32
+        self.lost = s >> 32
+        return s & M32
+
+    def add(self, a, b, carry_in=True, cc=True):
+        return self._out(a + b + (self.cf if carry_in else 0), cc)
+
+    def sub(self, a, b, borrow_in=True, cc=True):
+        d = a - b - (self.cf if borrow_in else 0)
+        if cc:
+            self.cf = int(d < 0)
+        return d & M32
+
+    def mad(self, half, a, b, c, carry_in=True, cc=True):
+        p = a * b
+        p = p & M32 if half == "lo" else p >> 32
+        return self._out(p + c + (self.cf if carry_in else 0), cc)
+
+
+def _eo_mad(acc, xs, bi, top=None):
+    """eo_mad (top None) or eo_mad_top; returns (acc, top, lost carry)."""
+    acc, c = list(acc), _Chain()
+    for j, x in enumerate(xs):
+        first = j == 0
+        acc[2 * j] = c.mad("lo", x, bi, acc[2 * j], carry_in=not first)
+        last_hi = j == 3 and top is None
+        acc[2 * j + 1] = c.mad("hi", x, bi, acc[2 * j + 1], cc=not last_hi)
+    if top is not None:
+        top = c.add(top, 0, cc=False)
+    return acc, top, c.lost
+
+
+def _eo_mul(xs, bi):
+    out = []
+    for x in xs:
+        out += [(x * bi) & M32, (x * bi) >> 32]
+    return out
+
+
+def _eo_rshift(e0, o, xs, bi):
+    o, c = list(o), _Chain()
+    e0 = c.add(e0, o[1], carry_in=False)
+    src = o[2:] + [0, 0]  # o[2..7], then the zero operand twice
+    for j, x in enumerate(xs):
+        o[2 * j] = c.mad("lo", x, bi, src[2 * j])
+        o[2 * j + 1] = c.mad("hi", x, bi, src[2 * j + 1], cc=j < 3)
+    return e0, o, c.lost
+
+
+def _eo_reduce(e, o, lost):
+    m = (e[0] * FQL["n0inv"]) & M32
+    qs = _limbs(FQL["q"])
+    o, _, l1 = _eo_mad(o, qs[1::2], m)
+    e, o[7], l2 = _eo_mad(e, qs[0::2], m, top=o[7])
+    assert e[0] == 0
+    lost += [l1, l2]
+    return e, o
+
+
+def _mul(a, b, lost):
+    """fq::mul on limb lists; every lost carry is appended to ``lost``."""
+    od, ev = _eo_mul(a[1::2], b[0]), _eo_mul(a[0::2], b[0])
+    ev, od = _eo_reduce(ev, od, lost)
+    e, o = od, ev
+    for i in range(1, 8):  # eo_step(e, o, a, b[i]); the arrays then swap roles
+        e[0], o, l1 = _eo_rshift(e[0], o, a[1::2], b[i])
+        e, o[7], l2 = _eo_mad(e, a[0::2], b[i], top=o[7])
+        lost += [l1, l2]
+        e, o = _eo_reduce(e, o, lost)
+        e, o = o, e
+    ev, od = e, o  # ev from limb 1, od from limb 0 with od[0] == 0
+    c = _Chain()
+    r = [c.add(ev[j], od[j + 1] if j < 7 else 0, carry_in=j > 0, cc=j < 7) for j in range(8)]
+    lost.append(c.lost)
+    return r
+
+
+def _add(a, b, lost):
+    c = _Chain()
+    s = [c.add(a[j], b[j], carry_in=j > 0, cc=j < 7) for j in range(8)]
+    lost.append(c.lost)
+    c, q2 = _Chain(), _limbs(FQL["q2"])
+    d = [c.sub(s[j], q2[j], borrow_in=j > 0) for j in range(8)]
+    return s if c.cf else d
+
+
+def _sub(a, b, lost):
+    c = _Chain()
+    r = [c.sub(a[j], b[j], borrow_in=j > 0) for j in range(8)]
+    borrow, c2, q2 = c.cf, _Chain(), _limbs(FQL["q2"])
+    r = [c2.add(r[j], q2[j] if borrow else 0, carry_in=j > 0, cc=j < 7) for j in range(8)]
+    assert c2.lost == borrow  # the add-back of 2q wraps exactly when a < b
+    return r
+
+
+def _reduce_small(v):
+    top = ((v[8] << 32 | v[7]) >> 2) & M32
+    k = ((top * FQL["recip"]) >> 32) >> 27
+    r, nq = list(v[:8]), _limbs(FQL["nq"])
+    c = _Chain()  # both chains work mod 2^256: their lost carries are not checked
+    for j in range(8):
+        r[j] = c.mad("lo", k, nq[j], r[j], carry_in=j > 0, cc=j < 7)
+    c = _Chain()
+    for j in range(7):
+        r[j + 1] = c.mad("hi", k, nq[j], r[j + 1], carry_in=j > 0, cc=j < 6)
+    assert _int(r) == _int(v) - k * FQL["q"]
+    return r
+
+
+def _mul_small(cst, a, lost):
+    s = 1 if cst == 3 else 3
+    v = [(a[0] << s) & M32] + [((a[j] << s) | (a[j - 1] >> (32 - s))) & M32 for j in range(1, 8)]
+    v.append(a[7] >> (32 - s))
+    if cst != 8:
+        c = _Chain()
+        v = [c.add(v[j], a[j] if j < 8 else 0, carry_in=j > 0, cc=j < 8) for j in range(9)]
+        lost.append(c.lost)
+    return _reduce_small(v)
+
+
+def _canon(a):
+    c, q = _Chain(), _limbs(FQL["q"])
+    d = [c.sub(a[j], q[j], borrow_in=j > 0) for j in range(8)]
+    return a if c.cf else d
+
+
+def _double_lazy(x, y, z, lost, seen):
+    """g1_double.cu's double_lazy; every value it makes goes into ``seen``."""
+    def k(v):
+        seen.append(v)
+        return v
+
+    t0, t1, t2, xy = (k(_mul(a, b, lost)) for a, b in ((y, y), (y, z), (z, z), (x, y)))
+    z3 = k(_mul_small(8, t0, lost))
+    t2 = k(_mul_small(9, t2, lost))
+    y3 = k(_add(t0, t2, lost))
+    u = k(_mul_small(3, t2, lost))
+    t0 = k(_sub(t0, u, lost))
+    z = k(_mul(t1, z3, lost))
+    u = k(_mul(t2, z3, lost))
+    r = k(_mul(t0, y3, lost))
+    y = k(_add(u, r, lost))
+    r = k(_mul(t0, xy, lost))
+    x = k(_add(r, r, lost))
+    return x, y, z
+
+
+def _lazy_edges(rng, n_random):
+    """Values in [0, 2q): 0, 1, q - 1, q, q + 1, 2q - 1, 2q - 2, 2^254 - 1,
+    2q - 1 with its low k limbs all ones, limbs of all ones where the value
+    stays below 2q, and random values."""
+    q = FQL["q"]
+    vals = [0, 1, 2, q - 1, q, q + 1, 2 * q - 2, 2 * q - 1, (1 << 254) - 1, 1 << 253]
+    for kk in range(1, 8):
+        low = (1 << (32 * kk)) - 1
+        v = ((2 * q - 1) >> (32 * kk) << (32 * kk)) | low
+        vals.append(v if v < 2 * q else v - (1 << (32 * kk)))
+        vals.append(M32 << (32 * (kk - 1)))
+    vals = [v for v in vals if 0 <= v < 2 * q]
+    return vals + [rng.randrange(2 * q) for _ in range(n_random)]
+
+
+def test_k4_lazy_core_model_drops_no_carry_at_the_edges():
+    """Every product, sum, difference and small multiple of the lazy core,
+    run limb by limb on values in [0, 2q) (the edges and random values),
+    lands in [0, 2q) with the right residue, and no carry its chains drop is
+    ever nonzero; canon() then gives the canonical residue."""
+    q, rinv = FQL["q"], pow(1 << 256, -1, FQL["q"])
+    rng = random.Random(31)
+    vals = _lazy_edges(rng, 40)
+    pairs = [(a, b) for a in vals for b in vals] + \
+        [(rng.randrange(2 * q), rng.randrange(2 * q)) for _ in range(300)]
+    lost = []
+    for a, b in pairs:
+        la, lb = _limbs(a), _limbs(b)
+        for got, want in ((_mul(la, lb, lost), a * b * rinv), (_add(la, lb, lost), a + b),
+                          (_sub(la, lb, lost), a - b)):
+            v = _int(got)
+            assert v < 2 * q and (v - want) % q == 0, (a, b)
+    for a in vals:
+        for cst in (3, 8, 9):
+            v = _int(_mul_small(cst, _limbs(a), lost))
+            assert v < 2 * q and (v - cst * a) % q == 0, (cst, a)
+        assert _int(_canon(_limbs(a))) == a % q
+    assert lost and not any(lost)
+
+
+def test_k4_lazy_core_model_doubles_like_the_plain_version():
+    """The model of double_lazy, run reps times from canonical points and
+    canonicalised once (as the kernel's store does), equals the plain
+    version's reps doublings bit for bit; every intermediate stays below
+    2q and no chain drops a carry."""
+    fq = g1_vec.FQ
+    pts = _points(6, "cpu")  # lane 1 is the identity
+    ints = [[_int(row) for row in (c.to(torch.int64) & M32).tolist()] for c in pts]
+    for reps in (1, 3, 8):
+        want = cuda_g1.point_double_plain(fq, pts, reps)
+        lost, seen = [], []
+        for lane in range(6):
+            x, y, z = (_limbs(c[lane]) for c in ints)
+            for _ in range(reps):
+                x, y, z = _double_lazy(x, y, z, lost, seen)
+            for c, v in zip(want, (x, y, z)):
+                assert _int(_canon(v)) == _int((c[lane].to(torch.int64) & M32).tolist()), (reps, lane)
+        assert not any(lost)
+        assert all(_int(v) < 2 * FQL["q"] for v in seen)
+
+
+SASS_WITH_A_LOOP = """
+\t\tFunction : _Z20h2r_g1_double_kernelPKjS0_S0_PjS1_S1_xi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe40000000800 */
+        /*0010*/                   LDG.E R4, desc[UR4][R2.64] ;    /* 0x0000000402047981 */
+        /*0020*/              @!P0 BRA 0x60 ;                      /* 0x0000000000008947 */
+        /*0030*/                   IMAD.WIDE.U32.X R6, P1, R4, R5, R6, P1 ;
+        /*0040*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0050*/               @P0 BRA 0x30 ;
+        /*0060*/                   STG.E desc[UR4][R2.64], R6 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+"""
+
+
+def test_loop_split_tells_the_loop_body_from_the_rest():
+    listing = cuda_build.parse_sass(SASS_WITH_A_LOOP)
+    sym = cuda_build.kernel_symbol(listing, "h2r_g1_double_kernel")
+    insns = listing[sym]
+    assert [a for a, _, _ in insns] == list(range(0, 0x90, 0x10))
+    assert insns[2] == (0x20, "BRA", "0x60")
+    body, rest = cuda_build.loop_split(insns)
+    assert body == {"IMAD.WIDE.U32.X": 1, "IADD3": 1, "BRA": 1}
+    assert rest == {"LDC": 1, "LDG.E": 1, "BRA": 2, "STG.E": 1, "EXIT": 1}
+    assert cuda_build.pipe_counts(body) == dict(fma=1, alu=1, issued=3)
+    with pytest.raises(ValueError):  # no loop: only the tail's branch onto itself
+        cuda_build.loop_split(insns[:2] + insns[6:])
 
 
 def test_argument_checks_reject_cpu_and_bad_layouts():
