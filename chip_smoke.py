@@ -9,18 +9,21 @@ the script exits non-zero without its final line):
 2. build K1-K4 from halo2_rsa_tpu_torch/csrc with nvcc (sm_90a);
 3. kernel parity on the card: each kernel against its plain torch version
    (K1 at 2^20 products over four fields, K2-K4 at 2^16 points with the
-   identity, P+P and P+(-P)), all compared bitwise, with both times (K4's
-   in phase 6);
+   identity, P+P and P+(-P)), all compared bitwise; K1 and K3 timed there
+   (K2's and K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
 6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove; then K4 at the shapes the flagship launches it with (one
-   launch of 8 doublings per Horner window, over the P points of one
-   ``msm_many`` call, P as recorded from one more warm prove) and at 2^16
-   points with 1 and 8 doublings, each bitwise against its plain version,
-   timed as a chain paced by the host and as the card's time alone (the
-   chain queued behind a spin kernel, ``queued_ms``), beside an empty
+   one warm prove; the shapes of every K2, K3 and K4 launch of one more
+   warm prove (``chip_smoke.json``: ``g1_calls_per_warm_prove``); then K2
+   at the shapes the flagship launches it with (one scan of C = 64 mixed
+   adds per thread over the windows x chunks of one bucket pipeline) and at
+   2^16 points with C = 1, and K4 at its shapes (one launch of 8 doublings
+   per Horner window, over the P points of one ``msm_many`` call) and at
+   2^16 points with 1 and 8 doublings, each bitwise against its plain
+   version, timed as the card's time alone (the launches queued behind a
+   spin kernel, ``queued_ms``) and as paced by the host, beside an empty
    launch;
 7. P1, the integer op-rate probe: each of its 7 bodies at (16, 2^20), REPS
    64, bitwise against its plain version on the card, then the probe's own
@@ -33,14 +36,15 @@ the script exits non-zero without its final line):
    (``cuobjdump -sass`` of the built library) over the rates derived from
    the architecture at the card's maximum SM clock: the FMA pipe's integer
    opcodes and the ALU pipe's, 64 lanes per SM each, and all instructions
-   over 128 issued per SM (K4: its loop body once per doubling, the rest
-   once per launch). P1's best measured integer rate is reported beside it,
-   as a reading.
+   over 128 issued per SM (K2 and K4: the loop body once per add or
+   doubling, the rest once per thread). P1's best measured integer rate is
+   reported beside it, as a reading.
 
 Then it prints the kernels' JSON line (each row also names its ``shape``
-and its ``timing``: ``chain``, CUDA events over a chain x = f(x), or
-``queued``, the same chain queued behind a spin kernel so that the host
-cannot pace it), the card's name and power limit, and
+and its ``timing``: ``queued``, CUDA events over launches queued behind a
+spin kernel so that the host cannot pace them, or, for the probes'
+own timed runs, ``chain``, events over a chain x = f(x) the host paces),
+the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 
@@ -69,7 +73,12 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 PIPE_LANES_PER_SM, ISSUE_PER_SM = 64, 128
 P1_LOG_N, P1_REPS, P1_ITERS = 20, 64, 8
 P2_LOG_N, P2_ITERS, P2_THREADS = 20, 10, 256  # P2-staged's ms and bound are at T = 256
-K4_BIG = 1 << 16  # K4's parity shape
+K4_BIG = 1 << 16  # K2's and K4's parity shape
+QUEUED_ITERS = 50  # launches per queued_ms chain at the parity shapes
+# K2 calls per timed chain: a checkout whose K2 is one add per launch makes C
+# = 64 launches per call, and ~1,000 queued launches outgrow the card's
+# launch queue (the host then waits)
+K2_ITERS = 15
 QUEUE_LEAD_MS = 20.0  # queued_ms's first spin, lengthened while the host needs longer
 
 
@@ -124,7 +133,7 @@ def phase_device(report):
 # kernel key -> (SASS symbol, template arguments); P1's bodies are added below
 SASS_NAMES = {
     "K1": ("h2r_mont_mul_kernel", ()),
-    "K2": ("h2r_g1_add_mixed_kernel", ()),
+    "K2": ("h2r_g1_scan_mixed_kernel", ()),
     "K3": ("h2r_g1_add_kernel", ()),
     "K4": ("h2r_g1_double_kernel", ()),
     "P2-lm": ("h2r_mont_mul_lm_kernel", ()),
@@ -147,7 +156,8 @@ def phase_build(report):
     line(f"[2 build] K1-K4, P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
     k4_use = [u for sym, u in usage.items() if "h2r_g1_double_kernel" in sym]
     spilled = [sym for sym, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")]
-    line(f"[2 build] ptxas: K4 {k4_use} | kernels that spill: {spilled or 'none'}")
+    k2_use = [u for sym, u in usage.items() if "h2r_g1_scan_mixed_kernel" in sym]
+    line(f"[2 build] ptxas: K2 {k2_use}, K4 {k4_use} | kernels that spill: {spilled or 'none'}")
     listing = cuda_build.sass_listing(path)
     sass = {sym: collections.Counter(op for _, op, _ in insns) for sym, insns in listing.items()}
     names = dict(SASS_NAMES)
@@ -161,10 +171,12 @@ def phase_build(report):
             branches=sum(n for op, n in ops.items() if op.startswith("BRA")),
             top=dict(ops.most_common(8)),
         )
-    # K4 loops over its doublings: its body runs reps times, the rest once
-    body, rest = cuda_build.loop_split(listing[cuda_build.kernel_symbol(
-        listing, "h2r_g1_double_kernel")])
-    counts["K4"].update(body=_pipes(body), rest=_pipes(rest))
+    # K2 loops over its adds and K4 over its doublings: the body runs c or
+    # reps times, the rest once per thread
+    for key in ("K2", "K4"):
+        body, rest = cuda_build.loop_split(listing[cuda_build.kernel_symbol(
+            listing, SASS_NAMES[key][0])])
+        counts[key].update(body=_pipes(body), rest=_pipes(rest))
     report["sass"] = counts
     line("[2 build] SASS integer instructions per thread: " + ", ".join(
         f"{k}={v['int']}" for k, v in counts.items()))
@@ -228,15 +240,18 @@ def _parity_k1(report, kernels):
             raise AssertionError(f"K1 differs from its plain version over {field.name}: {err}")
         worst = max(worst, err)
         if field.name == "bn254_fr":
-            ms = chain_ms(lambda x: cuda_mont.mont_mul(fc, x, b), a, 50)
+            step = lambda x: cuda_mont.mont_mul(fc, x, b)  # noqa: E731
+            ms = queued_ms(step, a, QUEUED_ITERS)
+            host_ms = chain_ms(step, a, QUEUED_ITERS)
             plain_ms = chain_ms(lambda x: cuda_mont.mont_mul_plain(fc, x, b), a, 3)
     kernels["K1"] = dict(
         name="mont_mul", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont.cu",
         replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", max_abs_err=worst,
-        ms=ms, plain_ms=plain_ms, shape=f"{n} products", timing="chain",
+        ms=ms, host_paced_ms=host_ms, plain_ms=plain_ms, shape=f"{n} products",
+        timing="queued",
     )
-    line(f"[3 parity] K1 mont_mul: 2^20 x 4 fields bitwise equal | kernel {ms:.4f} ms, "
-         f"plain {plain_ms:.3f} ms (bn254_fr, 2^20)")
+    line(f"[3 parity] K1 mont_mul: 2^20 x 4 fields bitwise equal | card {ms:.4f} ms, "
+         f"host-paced {host_ms:.4f} ms, plain {plain_ms:.3f} ms (bn254_fr, 2^20)")
 
 
 def _test_points(n: int, device):
@@ -254,6 +269,9 @@ def _test_points(n: int, device):
     fq = g1_vec.FQ
     proj = (cuda_mont.mont_mul_plain(fq, ax, z), cuda_mont.mont_mul_plain(fq, ay, z), z)
     return aff, (ax, ay), proj
+
+
+G1_SOURCES = {"K2": "g1_scan.cu", "K3": "g1.cu", "K4": "g1_double.cu"}
 
 
 def _parity_g1(report, kernels):
@@ -280,7 +298,8 @@ def _parity_g1(report, kernels):
     p2m = tuple(c.roll(-1, dims=0).contiguous() for c in affxy)
 
     # each kernel and plain version takes the first operand, so it can be
-    # timed as a chain p = f(p); K4 is timed at its own shapes in phase 6
+    # timed as a chain p = f(p); K2 and K4 are timed at their own shapes in
+    # phase 6
     cases = {
         "K2": ("g1_add_mixed", lambda p: cuda_g1.point_add_mixed(fq, p, p2m),
                lambda p: cuda_g1.point_add_mixed_plain(fq, p, p2m),
@@ -303,17 +322,21 @@ def _parity_g1(report, kernels):
         sel = tuple(c[lanes] for c in got)
         assert g1_vec.points_from_device(sel) == [host(i) for i in lanes], key
         kernels[key] = dict(
-            name=name, route="cuda", source="halo2_rsa_tpu_torch/csrc/g1.cu",
+            name=name, route="cuda", source=f"halo2_rsa_tpu_torch/csrc/{G1_SOURCES[key]}",
             replaces=f"halo2_rsa_tpu/prover/pallas_g1.py:{pallas_line}", max_abs_err=err,
         )
-        if key == "K4":
-            line(f"[3 parity] K4 {name}: 2^16 points bitwise equal (identity, host affine)")
+        if key != "K3":
+            line(f"[3 parity] {key} {name}: 2^16 points bitwise equal (identity, P+P, P-P, "
+                 f"host affine)")
             continue
-        ms = chain_ms(kern, p1, 50)
+        ms = queued_ms(kern, p1, QUEUED_ITERS)
+        host_ms = chain_ms(kern, p1, QUEUED_ITERS)
         plain_ms = chain_ms(plain, p1, 3)
-        kernels[key].update(ms=ms, plain_ms=plain_ms, shape=f"{n} points", timing="chain")
+        kernels[key].update(ms=ms, host_paced_ms=host_ms, plain_ms=plain_ms,
+                            shape=f"{n} points", timing="queued")
         line(f"[3 parity] {key} {name}: 2^16 points bitwise equal (identity, P+P, P-P, "
-             f"host affine) | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+             f"host affine) | card {ms:.4f} ms, host-paced {host_ms:.4f} ms, "
+             f"plain {plain_ms:.3f} ms")
 
 
 def phase_parity(report, kernels):
@@ -438,7 +461,7 @@ def phase_flagship(report, kernels):
     counts = counts_now()
     f["launches"] = counts
     f["launches_per_warm_prove"] = per_prove
-    f["k4_calls_per_warm_prove"] = _k4_calls_of_one_prove(timed_prove)
+    f["g1_calls_per_warm_prove"] = _g1_calls_of_one_prove(timed_prove, per_prove)
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
          + ", ".join(f"{k_}={v}" for k_, v in counts.items())
@@ -450,24 +473,49 @@ def phase_flagship(report, kernels):
             raise AssertionError(f"{key} was never launched on the flagship path")
 
 
-def _k4_calls_of_one_prove(timed_prove) -> list:
-    """(points, doublings) of each K4 launch of one more warm prove, read by
-    a pass-through wrapper around the K4 wrapper (launch counts are already
-    taken)."""
+def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
+    """{kernel: [[shape..., launches], ...]} over one more warm prove, read
+    by pass-through wrappers around the K2-K4 wrappers (launch counts are
+    already taken): K2 (rows, C), K3 (points,), K4 (points, doublings). Each
+    kernel's launches must add up to its count over a warm prove."""
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
-    calls, real = [], cuda_g1.point_double
+    calls = {"K2": collections.Counter(), "K3": collections.Counter(),
+             "K4": collections.Counter()}
 
-    def recorder(fc, p, reps=1):
-        calls.append((p[0].numel() // p[0].shape[-1], reps))
-        return real(fc, p, reps)
+    def points(t):
+        return t.numel() // t.shape[-1]
 
-    cuda_g1.point_double = recorder
+    shape_of = {
+        "point_scan_mixed": ("K2", lambda fc, p1, pts: (points(p1[0]), pts[0].shape[-2])),
+        "point_add_mixed": ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
+        "point_add": ("K3", lambda fc, p1, p2: (points(p1[0]),)),
+        "point_double": ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
+    }
+    real = {name: getattr(cuda_g1, name) for name in shape_of}
+
+    def recorder(name):
+        key, shape = shape_of[name]
+
+        def wrapped(*args, **kw):
+            calls[key][shape(*args, **kw)] += 1
+            return real[name](*args, **kw)
+
+        return wrapped
+
+    for name in shape_of:
+        setattr(cuda_g1, name, recorder(name))
     try:
         timed_prove()
     finally:
-        cuda_g1.point_double = real
-    return calls
+        for name, fn in real.items():
+            setattr(cuda_g1, name, fn)
+    for key, hist in calls.items():
+        if sum(hist.values()) != per_prove[key]:
+            raise AssertionError(f"{key} launches recorded {sum(hist.values())} differ from "
+                                 f"its count over a warm prove {per_prove[key]}")
+    return {key: [[*shape, n] for shape, n in sorted(hist.items())]
+            for key, hist in calls.items()}
 
 
 def queued_ms(step, x, iters: int) -> float:
@@ -515,7 +563,7 @@ def k4_times(double, plain, shapes, pts) -> list:
     """K4 at each (kind, n, reps) of ``shapes``: ``double(p, reps)`` held
     bitwise against ``plain(p, reps)``, then ms per launch on the card alone
     (``queued_ms``) and paced by the host (``chain_ms``); the plain version's
-    ms at the path's shapes. ``scripts/time_k4.py`` runs it on another
+    ms at the path's shapes. ``scripts/time_kernels.py`` runs it on another
     checkout's wrappers."""
     import torch
 
@@ -542,24 +590,144 @@ def k4_times(double, plain, shapes, pts) -> list:
     return out
 
 
-def phase_k4(report, kernels):
-    """K4 at the path's shapes and at 2^16 points (``k4_times``), and an
-    empty launch (a zero-cycle spin) timed the same two ways."""
+def _empty_launch(report):
+    """An empty launch (a zero-cycle spin) timed on the card alone and paced
+    by the host."""
     import torch
 
-    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
     from halo2_rsa_tpu_torch.utils.profiling import chain_ms
 
+    empty = torch.zeros(1, device="cuda")
+    step = lambda x: (torch.cuda._sleep(0), x)[1]  # noqa: E731
+    report["empty_launch"] = dict(ms=queued_ms(step, empty, 200),
+                                  host_paced_ms=chain_ms(step, empty, 200))
+    line("[6 empty] empty launch: card {ms:.4f} ms, host-paced {host_paced_ms:.4f} ms".format(
+        **report["empty_launch"]))
+
+
+def k2_inputs(m: int, c: int):
+    """K2's inputs on the card: start points (m, 8) and affine rows (m, c, 8)
+    drawn from 2^16 curve points (``_test_points``). Every start is the
+    identity (0 : 1 : 0), as in the bucket scan, but rows 2 and 3, which
+    start at a projective point with random Z. Row 0 adds A then A (P+P at
+    step 2), row 1 D then -D (P+(-P)), row 2 its own start's point (P+P) and
+    row 3 its start's negation. A shape (m', c') takes the first m' rows and
+    c' columns."""
+    import torch
+
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.prover import g1_vec
+
+    _, (ax, ay), proj = _test_points(K4_BIG, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    idx = torch.randint(0, K4_BIG, (m, c), device="cuda", generator=gen)
+    idx[0, 1], idx[1, 1], idx[2, 0], idx[3, 0] = idx[0, 0], idx[1, 0], 2, 3
+    x, y = ax[idx], ay[idx]
+    for i, j in ((1, 1), (3, 0)):
+        y[i, j] = vecfield.sub(g1_vec.FQ, torch.zeros_like(y[i, j]), y[i, j])
+    start = g1_vec.identity((m,), device="cuda")
+    start = tuple(torch.cat([i[:2], pc[2:4], i[4:]]) for i, pc in zip(start, proj))
+    return start, (x, y)
+
+
+def _prefix_rows(res):
+    """The prefixes as (m, c, 8) coordinates, from a scan's output or from a
+    list of c single adds' outputs."""
+    import torch
+
+    if isinstance(res, list):
+        return tuple(torch.stack(coord, dim=1) for coord in zip(*res))
+    return res
+
+
+def _digest(coords) -> str:
+    h = hashlib.sha256()
+    for t in coords:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k2_times(make, shapes, start, rows, plain=None) -> list:
+    """K2 at each (kind, m, c) of ``shapes``, on the first m start points and
+    the first c columns of their rows. ``make(s, r)`` returns a call that
+    computes every prefix: one scan launch, or, for a checkout whose K2 is
+    one add per launch, c adds on inputs sliced beforehand (a list of their
+    outputs). Its prefixes' sha256 is kept (``digest``, for comparing
+    checkouts); given ``plain(s, r)``, they are held bitwise against the
+    plain version, run once per c at the largest m (each shape compares its
+    first m rows; ``plain_ms`` is that run's). Then ms per call on the card
+    alone (``queued_ms``) and paced by the host (``chain_ms``).
+    ``scripts/time_kernels.py`` runs it on another checkout's wrappers."""
+    import torch
+
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    want, out = {}, []
+    for kind, m, c in shapes:
+        s = tuple(t[:m] for t in start)
+        r = tuple(t[:m, :c].contiguous() for t in rows)
+        call = make(s, r)
+        got = _prefix_rows(call())
+        res = dict(kind=kind, m=m, c=c, digest=_digest(got))
+        if plain is not None:
+            top = max(m_ for _, m_, c_ in shapes if c_ == c)
+            if c not in want:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want[c] = plain(tuple(t[:top] for t in start),
+                                tuple(t[:top, :c].contiguous() for t in rows))
+                torch.cuda.synchronize()
+                want[c, "ms"] = (time.perf_counter() - t0) * 1e3
+            res["max_abs_err"] = _max_abs_err(got, tuple(w[:m] for w in want[c]))
+            if res["max_abs_err"]:
+                raise AssertionError(f"K2 at {m} rows x C {c} differs from its plain version")
+            if m == top:
+                res["plain_ms"] = want[c, "ms"]
+        del got
+        step = lambda q: (call(), q)[1]  # noqa: E731
+        res.update(ms=queued_ms(step, s[0], K2_ITERS),
+                   host_paced_ms=chain_ms(step, s[0], K2_ITERS))
+        out.append(res)
+    return out
+
+
+def phase_k2(report, kernels):
+    """K2 at the path's shapes and at 2^16 points with C = 1
+    (``k2_times``)."""
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+
     fq = g1_vec.FQ
-    calls = report["flagship"]["k4_calls_per_warm_prove"]
-    per_shape = collections.Counter(calls)
-    if sum(per_shape.values()) != report["flagship"]["launches_per_warm_prove"]["K4"]:
-        raise AssertionError(f"K4 calls recorded {len(calls)} differ from the launch count")
+    hist = {(m, c): n for m, c, n in report["flagship"]["g1_calls_per_warm_prove"]["K2"]}
+    shapes = [("path", m, c) for m, c in sorted(hist, reverse=True)] + [("parity", K4_BIG, 1)]
+    start, rows = k2_inputs(max(m for _, m, _ in shapes), max(c for _, _, c in shapes))
+    out = k2_times(lambda s, r: lambda: cuda_g1.point_scan_mixed(fq, s, r), shapes, start, rows,
+                   plain=lambda s, r: cuda_g1.point_scan_mixed_plain(fq, s, r))
+    for r in out:
+        r["launches_per_warm_prove"] = hist.get((r["m"], r["c"]), 0)
+        line(f"[6 K2] {r['kind']} m={r['m']} C={r['c']}: bitwise equal | card {r['ms']:.4f} ms "
+             f"({r['ms'] / r['c'] * 1e3:.2f} us per add step), host-paced "
+             f"{r['host_paced_ms']:.4f} ms"
+             + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+             + f" | {r['launches_per_warm_prove']} launches per warm prove")
+    report["k2"] = dict(shapes=out)
+    # the kernels line's K2 row: the path's largest shape
+    row = max((r for r in out if r["kind"] == "path"), key=lambda r: r["m"])
+    kernels["K2"].update(
+        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
+        max_abs_err=max([kernels["K2"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
+        shape=f"{row['m']} rows x C {row['c']} (the bucket scan of one pipeline of the "
+              f"flagship's largest msm_many call)", timing="queued",
+    )
+
+
+def phase_k4(report, kernels):
+    """K4 at the path's shapes and at 2^16 points (``k4_times``)."""
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+
+    fq = g1_vec.FQ
+    per_shape = {(n, reps): k for n, reps, k in report["flagship"]["g1_calls_per_warm_prove"]["K4"]}
     shapes = [("path", n, reps) for n, reps in sorted(per_shape)] + \
         [("parity", K4_BIG, 1), ("parity", K4_BIG, 8)]
-    empty = torch.zeros(1, device="cuda")
-    empty_chain = chain_ms(lambda x: (torch.cuda._sleep(0), x)[1], empty, 200)
-    empty_queued = queued_ms(lambda x: (torch.cuda._sleep(0), x)[1], empty, 200)
     out = k4_times(lambda p, reps: cuda_g1.point_double(fq, p, reps),
                    lambda p, reps: cuda_g1.point_double_plain(fq, p, reps), shapes, k4_points())
     for r in out:
@@ -569,13 +737,11 @@ def phase_k4(report, kernels):
              f"{r['host_paced_ms']:.4f} ms"
              + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
              + f" | {r['launches_per_warm_prove']} launches per warm prove")
-    line(f"[6 K4] empty launch: card {empty_queued:.4f} ms, host-paced {empty_chain:.4f} ms")
-    report["k4"] = dict(shapes=out, empty_launch_ms=empty_queued,
-                        empty_launch_host_paced_ms=empty_chain)
+    report["k4"] = dict(shapes=out)
     # the kernels line's K4 row: the path's largest shape
     row = max((r for r in out if r["kind"] == "path"), key=lambda r: r["n"])
     kernels["K4"].update(
-        source="halo2_rsa_tpu_torch/csrc/g1_double.cu", ms=row["ms"], plain_ms=row["plain_ms"],
+        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
         max_abs_err=max([kernels["K4"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
         shape=f"{row['n']} points, reps {row['reps']} (one Horner window of the flagship's "
               f"largest msm_many call)", timing="queued",
@@ -687,16 +853,26 @@ def phase_p2(report, kernels):
               f"{mont_layout.THREADS}, ms, plain_ms and the bound at T={P2_THREADS}", **common)
 
 
-def _k4_part(report, sass, shape=None):
-    """(points, bytes per point, SASS per point) of one K4 launch, at the K4
-    row's shape unless ``shape`` is given: the loop body once per doubling,
-    the load, canonicalisation and store once."""
-    if shape is None:
-        shape = max((r for r in report["k4"]["shapes"] if r["kind"] == "path"),
-                    key=lambda r: r["n"])
-    body, rest = sass["K4"]["body"], sass["K4"]["rest"]
-    return (shape["n"], 6 * 32,
-            {f: body[f] * shape["reps"] + rest[f] for f in ("fma", "alu", "issued", "int")})
+def _looped(sass, key: str, threads: int, steps: int, nbytes: int):
+    """(threads, bytes per thread, SASS per thread) of one launch of K2 or
+    K4: the loop body once per step (an add or a doubling), the rest (load,
+    canonicalisation, store) once."""
+    body, rest = sass[key]["body"], sass[key]["rest"]
+    return (threads, nbytes,
+            {f: body[f] * steps + rest[f] for f in ("fma", "alu", "issued", "int")})
+
+
+def _k2_part(sass, r):
+    # reads 3 start coordinates and 2 per step, writes 3 per step
+    return _looped(sass, "K2", r["m"], r["c"], (5 * r["c"] + 3) * 32)
+
+
+def _k4_part(sass, r):
+    return _looped(sass, "K4", r["n"], r["reps"], 6 * 32)
+
+
+def _path_row(shapes, size: str):
+    return max((r for r in shapes if r["kind"] == "path"), key=lambda r: r[size])
 
 
 def phase_bounds(report, kernels):
@@ -725,9 +901,9 @@ def phase_bounds(report, kernels):
     n_p1 = 16 << P1_LOG_N
     work = {  # key -> [(elements, bytes per element, SASS counts per element)]
         "K1": [(1 << 20, 96, sass["K1"])],
-        "K2": [(1 << 16, 8 * 32, sass["K2"])],
+        "K2": [_k2_part(sass, _path_row(report["k2"]["shapes"], "m"))],
         "K3": [(1 << 16, 9 * 32, sass["K3"])],
-        "K4": [_k4_part(report, sass)],
+        "K4": [_k4_part(sass, _path_row(report["k4"]["shapes"], "n"))],
         "P1": [(n_p1, 12, sass[f"P1/{b}"]) for b in bodies],
         "P2-lm": [(1 << P2_LOG_N, 96, sass["P2-lm"])],
         "P2-staged": [(1 << P2_LOG_N, 96, sass["P2-staged"])],
@@ -749,18 +925,22 @@ def phase_bounds(report, kernels):
         line(f"[9 bounds] {key}: {k['ms']:.4f} ms vs bound {k['bound_ms']:.4f} ms "
              f"({k['bound_by']}; bytes {sum(mem):.4f}, pipes/issue {sum(ops):.4f}; int at P1's "
              f"rate {p1_rate_ms:.4f}) = {k['bound_ms'] / k['ms'] * 100:.1f} % of bound")
-    line("[9 bounds] K4 SASS per doubling (its loop body): FMA pipe {fma}, ALU pipe {alu}, "
-         "issued {issued}".format(**sass["K4"]["body"])
-         + "; once per launch (load, canonicalise, store): FMA pipe {fma}, ALU pipe {alu}, "
-           "issued {issued}".format(**sass["K4"]["rest"]))
-    for r in report["k4"]["shapes"]:
-        n, nb, cnt = _k4_part(report, sass, r)
-        mem = n * nb / HBM_BYTES_S * 1e3
-        ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3
-        r.update(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations")
-        line(f"[9 bounds] K4 {r['kind']} n={n} reps={r['reps']}: {r['ms']:.4f} ms vs bound "
-             f"{r['bound_ms']:.6f} ms ({r['bound_by']}); empty launch "
-             f"{report['k4']['empty_launch_ms']:.4f} ms")
+    empty = report["empty_launch"]["ms"]
+    for key, step, part, size in (("K2", "add", _k2_part, "m"), ("K4", "doubling", _k4_part, "n")):
+        line(f"[9 bounds] {key} SASS per {step} (its loop body): FMA pipe {{fma}}, ALU pipe "
+             "{alu}, issued {issued}".format(**sass[key]["body"])
+             + "; once per thread (load, canonicalise, store): FMA pipe {fma}, ALU pipe {alu}, "
+               "issued {issued}".format(**sass[key]["rest"]))
+        for r in report[key.lower()]["shapes"]:
+            n, nb, cnt = part(sass, r)
+            mem = n * nb / HBM_BYTES_S * 1e3
+            ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3
+            r.update(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations",
+                     bytes_ms=mem, ops_ms=ops)
+            dims = f"m={n} C={r['c']}" if key == "K2" else f"n={n} reps={r['reps']}"
+            line(f"[9 bounds] {key} {r['kind']} {dims}: {r['ms']:.4f} ms vs bound "
+                 f"{r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {mem:.6f}, pipes/issue "
+                 f"{ops:.6f}); empty launch {empty:.4f} ms")
 
 
 def main() -> int:
@@ -773,6 +953,8 @@ def main() -> int:
     phase_parity(report, kernels)
     phase_golden(report)
     phase_flagship(report, kernels)
+    _empty_launch(report)
+    phase_k2(report, kernels)
     phase_k4(report, kernels)
     phase_p1(report, kernels)
     phase_p2(report, kernels)

@@ -1,23 +1,25 @@
 """K2-K4: BN254 G1 point kernels — the CUDA wrappers, their plain PyTorch
 versions, and their launch counters.
 
-Counterpart of ``halo2_rsa_tpu/prover/pallas_g1.py``. The kernels
-(``csrc/g1.cu``) hold a whole Renes–Costello–Batina formula (a = 0, b3 = 9)
-per thread:
+Counterpart of ``halo2_rsa_tpu/prover/pallas_g1.py``. The kernels hold a
+whole Renes–Costello–Batina formula (a = 0, b3 = 9) per thread:
 
-* K2 :func:`point_add_mixed` — algorithm 8, projective P1 + affine P2
-  (``_point_add_mixed_kernel``); complete when P2 is a real affine point;
+* K2 :func:`point_scan_mixed` — algorithm 8, projective P1 + affine P2
+  (``_point_add_mixed_kernel``), applied ``c`` times in one launch with
+  every prefix stored (``csrc/g1_scan.cu``), as the MSM's bucket scan applies
+  it in a ``fori_loop``; :func:`point_add_mixed` is one add (c = 1) through
+  the same kernel. Complete when every P2 is a real affine point;
 * K3 :func:`point_add` — algorithm 7, complete projective add
-  (``_point_add_kernel``);
+  (``_point_add_kernel``, ``csrc/g1.cu``);
 * K4 :func:`point_double` — algorithm 9 (``_point_double_kernel``), applied
   ``reps`` times in one launch (``csrc/g1_double.cu``), as the JAX package's
   Horner combine applies it in a ``fori_loop``.
 
-Every wrapper takes coordinate tensors of one shape, ``(..., 8)`` int32
-Montgomery Fq limbs. CUDA tensors launch the kernel; CPU tensors run the
-``*_plain`` version, the same formula in plain torch ops (``mont_mul_plain``
-and the vecfield adds). Both give the reference's projective coordinates bit
-for bit, because each step returns the canonical residue.
+Every wrapper takes coordinate tensors of ``(..., 8)`` int32 Montgomery Fq
+limbs. CUDA tensors launch the kernel; CPU tensors run the ``*_plain``
+version, the same formula in plain torch ops (``mont_mul_plain`` and the
+vecfield adds). Both give the reference's projective coordinates bit for
+bit, because each step returns the canonical residue.
 """
 
 from __future__ import annotations
@@ -61,8 +63,39 @@ def point_add_plain(fc, p1, p2):
 
 
 def point_add_mixed_plain(fc, p1, p2xy):
-    """K2's plain version."""
+    """K2's plain version, one add."""
     return _plain(_point_add_mixed_u64, fc, p1, p2xy)
+
+
+def _scan_len(p1, pts_xy) -> int:
+    """C of a scan of start points (..., 8) over affine rows (..., C, 8);
+    raises unless the shapes match and C >= 1."""
+    shape = p1[0].shape
+    rows = pts_xy[0].shape
+    if len(p1) != 3 or len(pts_xy) != 2 or shape[-1:] != (LIMBS,) or len(rows) < 2:
+        raise ValueError("point_scan_mixed: (X, Y, Z) of (..., 8) and (x, y) of (..., C, 8)")
+    if any(t.shape != shape for t in p1) or any(t.shape != rows for t in pts_xy) or \
+            rows[:-2] + rows[-1:] != shape:
+        raise ValueError(f"point_scan_mixed: start points {tuple(shape)} do not match affine "
+                         f"rows {tuple(rows)}")
+    if rows[-2] < 1:
+        raise ValueError("point_scan_mixed: C must be >= 1, got 0")
+    return rows[-2]
+
+
+def point_scan_mixed_plain(fc, p1, pts_xy):
+    """K2's plain version of the scan: :func:`point_add_mixed_plain` applied
+    along axis -2 of the affine rows, every prefix kept."""
+    c = _scan_len(p1, pts_xy)
+
+    def scan(fc, acc, pts):
+        prefixes = []
+        for j in range(c):
+            acc = _point_add_mixed_u64(fc, acc, tuple(t[..., j, :] for t in pts))
+            prefixes.append(acc)
+        return tuple(torch.stack(coord, dim=-2) for coord in zip(*prefixes))
+
+    return _plain(scan, fc, p1, pts_xy)
 
 
 def _check_reps(reps: int) -> None:
@@ -144,34 +177,65 @@ def _point_double_u64(fc, p):
 # ---------------------------------------------------------------------------
 
 
-def _launch(name: str, ins, *extra) -> tuple:
-    """Launch ``h2r_<name>`` on ``ins``; ``extra`` C arguments follow the
-    element count."""
-    check_kernel_args(*ins)
+def _launch(counter: str, symbol: str, ins, outs, n: int, *extra) -> tuple:
+    """Launch ``symbol`` on ``ins`` and ``outs`` over ``n`` threads' worth
+    of elements; ``extra`` C arguments follow the count."""
     from ..utils.cuda_build import library
 
-    outs = tuple(torch.empty_like(ins[0]) for _ in range(3))
-    n = ins[0].numel() // LIMBS
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-    fn = getattr(library(), "h2r_" + name)
-    err = fn(*[t.data_ptr() for t in ins + outs], n, *extra, stream)
-    check_launch(err, "h2r_" + name)
-    LAUNCHES[name] += 1
+    err = getattr(library(), symbol)(*[t.data_ptr() for t in ins + outs], n, *extra, stream)
+    check_launch(err, symbol)
+    LAUNCHES[counter] += 1
     return outs
+
+
+def _empty3(like: torch.Tensor) -> tuple:
+    return tuple(torch.empty_like(like) for _ in range(3))
+
+
+def _check_fq(fc, key: str) -> None:
+    if fc.field.p != BN254_FQ.p:
+        raise ValueError(f"{key} is built for BN254 Fq, not {fc.field.name}")
 
 
 def point_add(fc, p1, p2):
     """K3: complete projective P1 + P2."""
     if p1[0].device.type == "cpu":
         return point_add_plain(fc, p1, p2)
-    return _launch("g1_add", tuple(p1) + tuple(p2), p_arg(fc), fc.n0inv32)
+    ins = tuple(p1) + tuple(p2)
+    check_kernel_args(*ins)
+    return _launch("g1_add", "h2r_g1_add", ins, _empty3(ins[0]), ins[0].numel() // LIMBS,
+                   p_arg(fc), fc.n0inv32)
+
+
+def _scan_mixed(fc, p1, pts_xy):
+    c = _scan_len(p1, pts_xy)
+    _check_fq(fc, "K2")
+    check_kernel_args(*p1)
+    check_kernel_args(*pts_xy)
+    ins = tuple(p1) + tuple(pts_xy)
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError("K2's tensors must be 16-byte aligned")
+    return _launch("g1_add_mixed", "h2r_g1_scan_mixed", ins, _empty3(pts_xy[0]),
+                   p1[0].numel() // LIMBS, c, p_arg(fc), fc.n0inv32)
+
+
+def point_scan_mixed(fc, p1, pts_xy):
+    """K2 over a row per start point: ``out[..., j, :] = p1 + pts[..., 0, :]
+    + ... + pts[..., j, :]`` for start points (..., 8) and affine rows
+    (..., C, 8), every prefix as (..., C, 8) coordinates, in one launch. The
+    kernel is built for BN254 Fq, so any other field raises."""
+    if p1[0].device.type == "cpu":
+        return point_scan_mixed_plain(fc, p1, pts_xy)
+    return _scan_mixed(fc, p1, pts_xy)
 
 
 def point_add_mixed(fc, p1, p2xy):
-    """K2: projective P1 + affine (x2, y2)."""
+    """K2: projective P1 + affine (x2, y2), the scan with C = 1."""
     if p1[0].device.type == "cpu":
         return point_add_mixed_plain(fc, p1, p2xy)
-    return _launch("g1_add_mixed", tuple(p1) + tuple(p2xy), p_arg(fc), fc.n0inv32)
+    out = _scan_mixed(fc, p1, tuple(t.unsqueeze(-2) for t in p2xy))
+    return tuple(t.squeeze(-2) for t in out)
 
 
 def point_double(fc, p, reps: int = 1):
@@ -181,6 +245,8 @@ def point_double(fc, p, reps: int = 1):
     if p[0].device.type == "cpu":
         return point_double_plain(fc, p, reps)
     _check_reps(reps)
-    if fc.field.p != BN254_FQ.p:
-        raise ValueError(f"K4 is built for BN254 Fq, not {fc.field.name}")
-    return _launch("g1_double", tuple(p), reps)
+    _check_fq(fc, "K4")
+    ins = tuple(p)
+    check_kernel_args(*ins)
+    return _launch("g1_double", "h2r_g1_double", ins, _empty3(ins[0]), ins[0].numel() // LIMBS,
+                   reps)

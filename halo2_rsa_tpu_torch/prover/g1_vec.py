@@ -3,7 +3,8 @@
 Counterpart of ``halo2_rsa_tpu/prover/g1_vec.py``. Points are homogeneous
 projective (X, Y, Z) tuples of ``(..., 8)`` int32 Montgomery Fq tensors;
 infinity is (0, 1, 0). The three point formulas go to K2-K4
-(:mod:`.cuda_g1`) after broadcasting their coordinates to one shape.
+(:mod:`.cuda_g1`) after broadcasting their coordinates to one shape; the
+bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ def point_add_mixed(p1, p2xy):
     Complete for any p1 provided p2 is a real affine point."""
     c = _one_shape(tuple(p1) + tuple(p2xy))
     return cuda_g1.point_add_mixed(FQ, c[:3], c[3:])
+
+
+def point_scan_mixed(p1, pts_xy):
+    """Every prefix of each row of AFFINE points (x, y) of (..., C, 8) added
+    to the projective start points (..., 8): (..., C, 8) coordinates, prefix
+    j = p1 + pts[..., 0, :] + ... + pts[..., j, :]. One K2 launch (C mixed
+    adds per row)."""
+    return cuda_g1.point_scan_mixed(
+        FQ, tuple(c.contiguous() for c in p1), tuple(c.contiguous() for c in pts_xy))
 
 
 def point_double(p, reps: int = 1):

@@ -7,9 +7,10 @@ coordinates:
   1. c-bit digits of the scalars, least-significant window first;
   2. per window, a stable sort of the points by digit;
   3. a chunked inclusive prefix scan of the sorted points: a C-step
-     sequential scan across all chunks at once (K2 when the base points are
-     affine, else K3), a log-depth scan over the chunk totals (K3), and the
-     chunk offsets spliced in only at the bucket boundaries;
+     sequential scan across all chunks at once (one K2 launch of C mixed
+     adds per thread when the base points are affine, else C K3 launches),
+     a log-depth scan over the chunk totals (K3), and the chunk offsets
+     spliced in only at the bucket boundaries;
   4. bucket sums by prefix-sum differencing at ``searchsorted`` boundaries;
   5. sum_b b * P_b via suffix sums and a halving tree (K3), then a Horner
      combine over windows (per window one K4 launch of ``window_bits``
@@ -29,9 +30,9 @@ from . import curve, g1_vec
 from .g1_vec import (
     identity,
     point_add,
-    point_add_mixed,
     point_double,
     point_neg,
+    point_scan_mixed,
     point_select,
 )
 
@@ -107,14 +108,18 @@ def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = F
     n_chunks = npad // c_len
     p3 = tuple(c.reshape(w, n_chunks, c_len, LIMBS) for c in ps)
 
-    # 1) sequential inclusive scan within each length-C chunk
+    # 1) sequential inclusive scan within each length-C chunk; the chunk
+    # totals are the last prefixes
     acc = identity((w, n_chunks), device=dev)
-    within = tuple(torch.empty_like(c) for c in identity((w, n_chunks, c_len), device=dev))
-    for j in range(c_len):
-        x = tuple(c[:, :, j] for c in p3)
-        acc = point_add_mixed(acc, x) if z_one else point_add(acc, x)
-        for o, a in zip(within, acc):
-            o[:, :, j] = a
+    if z_one:
+        within = point_scan_mixed(acc, p3)
+    else:
+        within = tuple(torch.empty_like(c) for c in identity((w, n_chunks, c_len), device=dev))
+        for j in range(c_len):
+            acc = point_add(acc, tuple(c[:, :, j] for c in p3))
+            for o, a in zip(within, acc):
+                o[:, :, j] = a
+    acc = tuple(c[:, :, -1] for c in within)
     del p3, ps
 
     # 2) exclusive scan of the chunk totals

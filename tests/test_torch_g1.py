@@ -94,6 +94,58 @@ def test_k2_point_add_mixed_matches_jax_and_host(pts):
     assert tg1.points_from_device(got) == [curve.g1_add(p, q) for p, q in zip(pts["a"], aff)]
 
 
+@pytest.mark.parametrize("c", [1, 5])
+def test_k2_scan_matches_successive_jax_mixed_adds(pts, c):
+    """The scan's plain version over C affine points per row equals C
+    successive JAX mixed adds, every prefix bitwise, over 4 rows: from the
+    identity (0 : 1 : 0), A then A (P+P at step 2); from A with random Z, A
+    (P+P); from B with random Z, -B (P+(-P)); from the identity, D then -D."""
+    a = [p for p in pts["a"] + pts["b"] if p is not None]
+    fill = a[8 : 8 + 4 * c]
+    rows = [
+        [a[0], a[0]] + fill[0:3],
+        [pts["a"][0]] + fill[3:7],
+        [curve.g1_neg(pts["a"][5])] + fill[7:11],
+        [a[3], curve.g1_neg(a[3])] + fill[11:14],
+    ]
+    aff = [r[:c] for r in rows]
+    xy = [[p[k] for r in aff for p in r] for k in (0, 1)]
+    txy = tuple(tvf.from_ints(tg1.FQ, v, device="cpu").reshape(4, c, 8) for v in xy)
+    jxy = tuple(np.asarray(jg1.vecfield.from_ints(jg1.FQ, v)).reshape(4, c, 16) for v in xy)
+    lanes = [0, 5]  # A and B of the 16-point batch, projective with random Z
+    ident_t, ident_j = tg1.identity((1,), device="cpu"), jg1.identity((1,))
+    tstart = tuple(torch.cat([i, c_[lanes], i]) for c_, i in zip(pts["ta"], ident_t))
+    jstart = tuple(np.concatenate([i, np.asarray(c_)[lanes], i])
+                   for c_, i in zip(pts["ja"], ident_j))
+    got = cuda_g1.point_scan_mixed_plain(tg1.FQ, tstart, txy)
+    assert all(t.shape == (4, c, 8) for t in got)
+    for g, w in zip(tg1.point_scan_mixed(tstart, txy), got):
+        assert torch.equal(g, w)
+    want, host = jstart, [None, pts["a"][0], pts["a"][5], None]
+    for j in range(c):
+        want = jg1.point_add_mixed(want, tuple(t[:, j] for t in jxy))
+        host = [curve.g1_add(h, r[j]) for h, r in zip(host, aff)]
+        prefix = tuple(t[:, j] for t in got)
+        _same(prefix, want)
+        assert tg1.points_from_device(prefix) == host
+        if j < 2:
+            assert host[2 + j] is None  # B + (-B) at step 1, D + (-D) at step 2
+
+
+def test_k2_scan_rejects_bad_c_and_shapes(pts):
+    xy = tuple(c[:, None].expand(N, 3, 8).contiguous() for c in pts["ta"][:2])
+    for start, rows in (
+        (pts["ta"], tuple(c[:, :0] for c in xy)),  # C = 0
+        (tuple(c[:3] for c in pts["ta"]), xy),  # 3 starts, 16 rows
+        (pts["ta"], (xy[0], xy[1][:, :2])),  # x and y of other shapes
+        (pts["ta"], xy[:1]),  # no y
+    ):
+        with pytest.raises(ValueError):
+            cuda_g1.point_scan_mixed_plain(tg1.FQ, start, rows)
+        with pytest.raises(ValueError):
+            tg1.point_scan_mixed(start, rows)
+
+
 def test_k4_point_double_matches_jax_and_host(pts):
     got = cuda_g1.point_double_plain(tg1.FQ, pts["ta"])
     _same(got, jg1.point_double(pts["ja"]))

@@ -5,7 +5,8 @@ The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
 The argument checks, the CPU dispatch, the SASS loop split and a limb-level
-model of K4's lazy field core (csrc/fq_lazy.cuh) run everywhere.
+model of the lazy field core (csrc/fq_lazy.cuh) and of K4's and K2's steps
+on it run everywhere.
 """
 
 import os
@@ -60,14 +61,32 @@ def test_k2_k3_k4_kernels_match_plain(cuda):
     xy = tuple(c.roll(5, 0).contiguous() for c in g1_vec.points_to_affine(
         tuple(torch.cat([c[:1], c[2:]]) for c in p1))[:2])
     p1m = tuple(torch.cat([c[:1], c[2:]]) for c in p1)
-    for kern, plain, args in (
-        (cuda_g1.point_add, cuda_g1.point_add_plain, (p1, p2)),
-        (cuda_g1.point_add_mixed, cuda_g1.point_add_mixed_plain, (p1m, xy)),
+    for key, kern, plain, args in (
+        ("g1_add", cuda_g1.point_add, cuda_g1.point_add_plain, (p1, p2)),
+        ("g1_add_mixed", cuda_g1.point_add_mixed, cuda_g1.point_add_mixed_plain, (p1m, xy)),
     ):
+        before = cuda_g1.LAUNCHES[key]
         got = kern(fq, *args)
+        assert cuda_g1.LAUNCHES[key] == before + 1
         want = plain(fq, *args)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    # K2's scan at C = 1 and 64 over 3 and 1000 rows, and the bucket scan's
+    # smallest shape (2^14 rows x 64); the starts are the 1000 points tiled
+    # (lane 1 the identity), row 0 first adds its own start (P+P), row 2
+    # its start's negation (P+(-P))
+    pool = tuple(torch.cat([c[:1], c[2:]]) for c in p1[:2])  # Z = 1: affine
+    for m, c in ((3, 1), (3, 64), (1000, 1), (1000, 64), (1 << 14, 64)):
+        idx = (torch.arange(m * c, device=cuda) * 7 + 3) % pool[0].shape[0]
+        rows = tuple(t[idx].reshape(m, c, 8) for t in pool)
+        rows[0][0, 0], rows[1][0, 0], rows[0][2, 0] = p1[0][0], p1[1][0], p1[0][2]
+        rows[1][2, 0] = vecfield.sub(fq, torch.zeros_like(p1[1][2]), p1[1][2])
+        starts = tuple(t.repeat(-(-m // 1000), 1)[:m].contiguous() for t in p1)
+        before = cuda_g1.LAUNCHES["g1_add_mixed"]
+        got = cuda_g1.point_scan_mixed(fq, starts, rows)
+        assert cuda_g1.LAUNCHES["g1_add_mixed"] == before + 1
+        for g, w in zip(got, cuda_g1.point_scan_mixed_plain(fq, starts, rows)):
+            assert torch.equal(g, w), (m, c)
     # K4 at the Horner combine's shapes (a few points, 8 doublings) and at
     # 2^16 points (the 1000 tiled); lane 1 is the identity (0 : 1 : 0)
     tiled = tuple(c.repeat(66, 1)[: 1 << 16].contiguous() for c in p1)
@@ -105,6 +124,28 @@ def test_k4_wrapper_rejects_bad_reps_and_other_fields(cuda):
             with pytest.raises(ValueError):
                 cuda_g1.point_double(vecfield.consts(field), pts)
     assert cuda_g1.LAUNCHES["g1_double"] == before
+
+
+@pytest.mark.cuda
+def test_k2_wrappers_reject_bad_c_other_fields_and_shapes(cuda):
+    fq = g1_vec.FQ
+    pts = _points(4, cuda)
+    xy = tuple(c[:, None].expand(4, 3, 8).contiguous() for c in pts[:2])
+    before = cuda_g1.LAUNCHES["g1_add_mixed"]
+    bad = [
+        (fq, pts, tuple(c[:, :0] for c in xy)),  # C = 0
+        (fq, tuple(c[:3] for c in pts), xy),  # 3 starts, 4 rows
+        (fq, pts, (xy[0], xy[1][:, :2].contiguous())),  # x and y of other shapes
+    ] + [(vecfield.consts(f), pts, xy) for f in ALL_FIELDS if f.p != fq.field.p]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_g1.point_scan_mixed(*args)
+    col = tuple(c[:, 0] for c in xy)
+    for args in [(fq, tuple(c[:3] for c in pts), col), (fq, pts, (col[0], col[1][:2]))] + \
+            [(vecfield.consts(f), pts, col) for f in ALL_FIELDS if f.p != fq.field.p]:
+        with pytest.raises(ValueError):
+            cuda_g1.point_add_mixed(*args)
+    assert cuda_g1.LAUNCHES["g1_add_mixed"] == before
 
 
 def _fq_lazy_constants() -> dict:
@@ -382,6 +423,67 @@ def test_k4_lazy_core_model_doubles_like_the_plain_version():
                 assert _int(_canon(v)) == _int((c[lane].to(torch.int64) & M32).tolist()), (reps, lane)
         assert not any(lost)
         assert all(_int(v) < 2 * FQL["q"] for v in seen)
+
+
+def _add_mixed_lazy(x, y, z, ax, ay, lost, seen):
+    """g1_scan.cu's add_mixed_lazy; every value it makes goes into ``seen``."""
+    def k(v):
+        seen.append(v)
+        return v
+
+    t0, t1 = k(_mul(x, ax, lost)), k(_mul(y, ay, lost))
+    t3 = k(_mul(k(_add(ax, ay, lost)), k(_add(x, y, lost)), lost))
+    t3 = k(_sub(t3, k(_add(t0, t1, lost)), lost))
+    t4 = k(_add(k(_mul(ay, z, lost)), y, lost))
+    y3 = k(_add(k(_mul(ax, z, lost)), x, lost))
+    trip0 = k(_mul_small(3, t0, lost))
+    t2 = k(_mul_small(9, z, lost))
+    z3 = k(_add(t1, t2, lost))
+    t1 = k(_sub(t1, t2, lost))
+    y3 = k(_mul_small(9, y3, lost))
+    x = k(_sub(k(_mul(t3, t1, lost)), k(_mul(t4, y3, lost)), lost))
+    y = k(_add(k(_mul(t1, z3, lost)), k(_mul(y3, trip0, lost)), lost))
+    z = k(_add(k(_mul(z3, t4, lost)), k(_mul(trip0, t3, lost)), lost))
+    return x, y, z
+
+
+@pytest.mark.parametrize("steps", [1, 3, 64])
+def test_k2_lazy_core_model_scans_like_the_plain_version(steps):
+    """The model of add_mixed_lazy, run over each row's affine points with
+    every prefix canonicalised (as the kernel's store does), equals the plain
+    scan bit for bit; every intermediate stays below 2q and no chain drops a
+    carry. Rows: from the identity; from P, adding P (P+P); from P, adding
+    -P (P+(-P)); from the identity with Y lifted by q (a lazy start), adding
+    D then -D."""
+    fq = g1_vec.FQ
+    pts = _points(steps + 8, "cpu")  # lane 1 is the identity; Z = 1 elsewhere
+    pool = tuple(torch.cat([c[:1], c[2:]]) for c in pts[:2])
+    idx = (torch.arange(4 * steps) * 5 + 2) % pool[0].shape[0]
+    rows = tuple(t[idx].reshape(4, steps, 8) for t in pool)
+    neg = lambda y: vecfield.sub(fq, torch.zeros_like(y), y)  # noqa: E731
+    for r, lane in ((1, 0), (2, 2)):
+        rows[0][r, 0], rows[1][r, 0] = pts[0][lane], pts[1][lane]
+    rows[1][2, 0] = neg(pts[1][2])
+    if steps > 1:
+        rows[0][3, 1], rows[1][3, 1] = rows[0][3, 0], neg(rows[1][3, 0])
+    starts = tuple(torch.stack([c[1], c[0], c[2], c[1]]) for c in pts)
+    want = cuda_g1.point_scan_mixed_plain(fq, starts, rows)
+
+    def ints(t):
+        return [_int(limbs) for limbs in (t.to(torch.int64) & M32).tolist()]
+
+    lost, seen = [], []
+    for row in range(4):
+        x, y, z = (_limbs(_int((c[row].to(torch.int64) & M32).tolist())) for c in starts)
+        if row == 3:
+            y = _limbs(_int(y) + FQL["q"])
+        for j in range(steps):
+            ax, ay = (_limbs(_int((c[row, j].to(torch.int64) & M32).tolist())) for c in rows)
+            x, y, z = _add_mixed_lazy(x, y, z, ax, ay, lost, seen)
+            for c, v in zip(want, (x, y, z)):
+                assert _int(_canon(v)) == ints(c[row])[j], (steps, row, j)
+    assert lost and not any(lost)
+    assert all(_int(v) < 2 * FQL["q"] for v in seen)
 
 
 SASS_WITH_A_LOOP = """
