@@ -9,56 +9,74 @@
 // every prefix; the JAX package runs that as a fori_loop of C mixed adds.
 // Here one launch covers all rows (windows x chunks): a thread loads its start
 // point once, keeps the running sum in registers, loads each affine point
-// once and stores each prefix once.
+// once and stores each prefix once, in the (rows, C, 8) layout that the
+// bucket-boundary gathers read.
+//
+// What bounds it on an H100: per add it reads 2 coordinates and writes 3 (160
+// bytes) and runs 11 Montgomery products, mostly IMAD.WIDE.U32.X on the FMA
+// pipe, so at the prover's widest scan (2^16 rows) it is bound by the FMA
+// pipe, and at its narrowest (2^14 rows, about one warp per scheduler) by one
+// thread's dependent chain. So the step runs on the lazy core of fq_lazy.cuh
+// (values in [0, 2q): no subtract after a product, one after an add, 3X and
+// 9Z as shifts and adds), and each prefix is brought to [0, q) by one canon()
+// on a copy at its store; residues mod q are unique, so every prefix equals
+// the plain version's (and the Pallas kernel's) bit for bit. Coordinates move
+// as two 16-byte accesses each.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "fq_lazy.cuh"
 
-// One mixed add in place, every value canonical.
-__device__ __forceinline__ void add_mixed(uint32_t x1[H2R_LIMBS], uint32_t y1[H2R_LIMBS],
-                                          uint32_t z1[H2R_LIMBS], const uint32_t x2[H2R_LIMBS],
-                                          const uint32_t y2[H2R_LIMBS], const FieldP& f) {
-  uint32_t t0[H2R_LIMBS], t1[H2R_LIMBS], t3[H2R_LIMBS], t4[H2R_LIMBS], y3[H2R_LIMBS],
-      u[H2R_LIMBS], v[H2R_LIMBS];
-  fe_mul(x1, x2, t0, f);
-  fe_mul(y1, y2, t1, f);
-  fe_add(x2, y2, u, f);
-  fe_add(x1, y1, v, f);
-  fe_mul(u, v, t3, f);
-  fe_add(t0, t1, u, f);
-  fe_sub(t3, u, t3, f);  // X1Y2 + X2Y1
-  fe_mul(y2, z1, u, f);
-  fe_add(u, y1, t4, f);  // Y1 + Y2Z1
-  fe_mul(x2, z1, u, f);
-  fe_add(u, x1, y3, f);  // X1 + X2Z1
-  uint32_t trip0[H2R_LIMBS], t2[H2R_LIMBS], z3t[H2R_LIMBS];
-  fe_add(t0, t0, trip0, f);
-  fe_add(trip0, t0, trip0, f);  // 3 X1X2
-  fe_mul9(z1, t2, f);           // b3 Z1
-  fe_add(t1, t2, z3t, f);
-  fe_sub(t1, t2, t1, f);
-  fe_mul9(y3, y3, f);  // b3 (X1 + X2Z1)
-  uint32_t m0[H2R_LIMBS], m1[H2R_LIMBS];
-  fe_mul(t4, y3, m0, f);
-  fe_mul(t3, t1, m1, f);
-  fe_sub(m1, m0, x1, f);
-  fe_mul(y3, trip0, m0, f);
-  fe_mul(t1, z3t, m1, f);
-  fe_add(m1, m0, y1, f);
-  fe_mul(trip0, t3, m0, f);
-  fe_mul(z3t, t4, m1, f);
-  fe_add(m1, m0, z1, f);
+// One mixed add in place, (x, y, z) += (ax, ay), every value in [0, 2q); the
+// steps of RCB15 algorithm 8 as in the Pallas kernel.
+__device__ __forceinline__ void add_mixed_lazy(uint32_t x[fq::N], uint32_t y[fq::N],
+                                               uint32_t z[fq::N], const uint32_t ax[fq::N],
+                                               const uint32_t ay[fq::N]) {
+  uint32_t t0[fq::N], t1[fq::N], t3[fq::N], t4[fq::N], y3[fq::N], u[fq::N], v[fq::N];
+  fq::mul(x, ax, t0);
+  fq::mul(y, ay, t1);
+  fq::add(ax, ay, u);
+  fq::add(x, y, v);
+  fq::mul(u, v, t3);
+  fq::add(t0, t1, u);
+  fq::sub(t3, u, t3);  // X1Y2 + X2Y1
+  fq::mul(ay, z, u);
+  fq::add(u, y, t4);  // Y1 + Y2Z1
+  fq::mul(ax, z, u);
+  fq::add(u, x, y3);  // X1 + X2Z1
+  uint32_t trip0[fq::N], t2[fq::N], z3t[fq::N];
+  fq::mul_small<3>(t0, trip0);  // 3 X1X2
+  fq::mul_small<9>(z, t2);      // b3 Z1
+  fq::add(t1, t2, z3t);
+  fq::sub(t1, t2, t1);
+  fq::mul_small<9>(y3, y3);  // b3 (X1 + X2Z1)
+  uint32_t m0[fq::N], m1[fq::N];
+  fq::mul(t4, y3, m0);
+  fq::mul(t3, t1, m1);
+  fq::sub(m1, m0, x);  // X3
+  fq::mul(y3, trip0, m0);
+  fq::mul(t1, z3t, m1);
+  fq::add(m1, m0, y);  // Y3
+  fq::mul(trip0, t3, m0);
+  fq::mul(z3t, t4, m1);
+  fq::add(m1, m0, z);  // Z3
 }
 
 // Element i of an array of 8-limb values, as two 16-byte accesses (the
 // wrapper requires 16-byte aligned tensors).
-__device__ __forceinline__ void load8(const uint32_t* __restrict__ p, long long i, uint32_t r[8]) {
+__device__ __forceinline__ void load8(const uint32_t* __restrict__ p, long long i,
+                                      uint32_t r[fq::N]) {
   const uint4* s = reinterpret_cast<const uint4*>(p) + 2 * i;
   uint4 a = s[0], b = s[1];
   r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
 }
 
-__device__ __forceinline__ void store8(uint32_t* __restrict__ p, long long i, const uint32_t r[8]) {
+// Stores a in [0, 2q) as its canonical residue.
+__device__ __forceinline__ void store8_canon(uint32_t* __restrict__ p, long long i,
+                                             const uint32_t a[fq::N]) {
+  uint32_t r[fq::N];
+#pragma unroll
+  for (int j = 0; j < fq::N; ++j) r[j] = a[j];
+  fq::canon(r);
   uint4* d = reinterpret_cast<uint4*>(p) + 2 * i;
   d[0] = make_uint4(r[0], r[1], r[2], r[3]);
   d[1] = make_uint4(r[4], r[5], r[6], r[7]);
@@ -71,42 +89,39 @@ __global__ void h2r_g1_scan_mixed_kernel(const uint32_t* __restrict__ x1p,
                                          const uint32_t* __restrict__ x2p,
                                          const uint32_t* __restrict__ y2p,
                                          uint32_t* __restrict__ x3p, uint32_t* __restrict__ y3p,
-                                         uint32_t* __restrict__ z3p, long long m, int c, FieldP f) {
+                                         uint32_t* __restrict__ z3p, long long m, int c) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  uint32_t x[H2R_LIMBS], y[H2R_LIMBS], z[H2R_LIMBS];
+  uint32_t x[fq::N], y[fq::N], z[fq::N];
   load8(x1p, i, x);
   load8(y1p, i, y);
   load8(z1p, i, z);
 #pragma unroll 1
   for (long long k = i * c; k < (i + 1) * c; ++k) {
-    uint32_t ax[H2R_LIMBS], ay[H2R_LIMBS];
+    uint32_t ax[fq::N], ay[fq::N];
     load8(x2p, k, ax);
     load8(y2p, k, ay);
-    add_mixed(x, y, z, ax, ay, f);
-    store8(x3p, k, x);
-    store8(y3p, k, y);
-    store8(z3p, k, z);
+    add_mixed_lazy(x, y, z, ax, ay);
+    store8_canon(x3p, k, x);
+    store8_canon(y3p, k, y);
+    store8_canon(z3p, k, z);
   }
 }
 
-namespace {
-// At the prover's smallest scan (2^14 rows) 64-thread blocks give every one
-// of the 132 SMs work; 128-thread blocks would leave four idle.
-constexpr int kThreads = 64;
-}  // namespace
-
+// The wrapper (cuda_g1.point_scan_mixed) refuses any field but BN254 Fq,
+// whose constants the kernel has built in.
 extern "C" int h2r_g1_scan_mixed(const void* x1, const void* y1, const void* z1, const void* x2,
                                  const void* y2, void* x3, void* y3, void* z3, long long m,
-                                 int c, const uint32_t* p_host, uint32_t n0inv, void* stream) {
+                                 int c, void* stream) {
   if (m <= 0) return 0;
   if (c < 1) return (int)cudaErrorInvalidValue;
-  FieldP f;
-  for (int j = 0; j < H2R_LIMBS; ++j) f.p[j] = p_host[j];
-  f.n0inv = n0inv;
-  h2r_g1_scan_mixed_kernel<<<(unsigned)((m + kThreads - 1) / kThreads), kThreads, 0,
+  // At the prover's narrowest scan (2^14 rows) 64-thread blocks give each of
+  // the 132 SMs work (256 blocks); 128-thread blocks would leave four idle.
+  // Either way an SM holds at most four warps there.
+  constexpr int threads = 64;
+  h2r_g1_scan_mixed_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
-      (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, m, c, f);
+      (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, m, c);
   return (int)cudaGetLastError();
 }

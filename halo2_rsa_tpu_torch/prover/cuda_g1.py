@@ -217,7 +217,7 @@ def _scan_mixed(fc, p1, pts_xy):
     if any(t.data_ptr() % 16 for t in ins):
         raise ValueError("K2's tensors must be 16-byte aligned")
     return _launch("g1_add_mixed", "h2r_g1_scan_mixed", ins, _empty3(pts_xy[0]),
-                   p1[0].numel() // LIMBS, c, p_arg(fc), fc.n0inv32)
+                   p1[0].numel() // LIMBS, c)
 
 
 def point_scan_mixed(fc, p1, pts_xy):
