@@ -41,10 +41,10 @@ the script exits non-zero without its final line):
    reported beside it, as a reading.
 
 Then it prints the kernels' JSON line (each row also names its ``shape``
-and its ``timing``: ``queued``, CUDA events over launches queued behind a
-spin kernel so that the host cannot pace them, or, for the probes'
-own timed runs, ``chain``, events over a chain x = f(x) the host paces),
-the card's name and power limit, and
+and its ``timing``: ``queued`` on every row, CUDA events over launches
+queued behind a spin kernel so that the host cannot pace them; the
+host-paced figure is ``host_paced_ms`` in chip_smoke.json), the card's name
+and power limit, and
 as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 
@@ -787,14 +787,20 @@ def phase_p1(report, kernels):
     report["p1"] = res
     if launches == 0:
         raise AssertionError("P1 was never launched by its timed run")
+    # the kernels line's time: each body queued behind a spin kernel (the
+    # timed run's chain, paced by the host, is kept as host_paced_ms)
+    queued = {body: queued_ms(lambda v, body=body: vpu_ops.int_ops(body, v, y, P1_REPS), x,
+                              QUEUED_ITERS) for body in vpu_ops.BODIES}
     kernels["P1"] = dict(
         name="int_ops", route="cuda", source="halo2_rsa_tpu_torch/csrc/int_ops.cu",
         replaces="scripts/bench_vpu_ops.py:50", launches=launches, max_abs_err=worst,
-        ms=sum(r["ms"] for r in res["bodies"].values()), plain_ms=sum(plain_ms.values()),
+        ms=sum(queued.values()), host_paced_ms=sum(r["ms"] for r in res["bodies"].values()),
+        plain_ms=sum(plain_ms.values()),
         shape=f"7 bodies x (16, 2^{P1_LOG_N}) lanes, REPS {P1_REPS} (times summed over bodies)",
-        timing="chain",
+        timing="queued",
     )
-    line(f"[7 P1] launches in the timed run: {launches}")
+    line(f"[7 P1] launches in the timed run: {launches} | queued on the card: " + ", ".join(
+        f"{b} {ms:.4f}" for b, ms in queued.items()) + " ms")
 
 
 def phase_p2(report, kernels):
@@ -838,17 +844,23 @@ def phase_p2(report, kernels):
     for key, count in launches.items():
         if count == 0:
             raise AssertionError(f"P2 {key} was never launched by its timed run")
+    # the kernels line's times: queued behind a spin kernel (the timed run's
+    # chains, paced by the host, are kept as host_paced_ms)
+    q_lm = queued_ms(cases["P2-lm"][0], at, QUEUED_ITERS)
+    q_staged = queued_ms(cases[f"P2-staged-{P2_THREADS}"][0], a, QUEUED_ITERS)
+    line(f"[8 P2] queued on the card: b' {q_lm:.4f} ms, d'{P2_THREADS} {q_staged:.4f} ms")
     common = dict(route="cuda", source="halo2_rsa_tpu_torch/csrc/mont_layout.cu",
-                  replaces="scripts/bench_mont_layout.py:110", timing="chain")
+                  replaces="scripts/bench_mont_layout.py:110", timing="queued")
     kernels["P2-lm"] = dict(
         name="mont_mul_lm", launches=launches["mont_mul_lm"], max_abs_err=errs["P2-lm"],
-        ms=res["variants"]["b'"]["ms"], plain_ms=plain_ms["P2-lm"],
+        ms=q_lm, host_paced_ms=res["variants"]["b'"]["ms"], plain_ms=plain_ms["P2-lm"],
         shape=f"2^{P2_LOG_N} products", **common)
     kernels["P2-staged"] = dict(
         name="mont_mul_staged<" + "|".join(map(str, mont_layout.THREADS)) + ">",
         launches=launches["mont_mul_staged"],
         max_abs_err=max(v for k_, v in errs.items() if k_.startswith("P2-staged")),
-        ms=res["variants"][f"d'{P2_THREADS}"]["ms"], plain_ms=plain_ms["P2-staged"],
+        ms=q_staged, host_paced_ms=res["variants"][f"d'{P2_THREADS}"]["ms"],
+        plain_ms=plain_ms["P2-staged"],
         shape=f"2^{P2_LOG_N} products; launches and max_abs_err over T in "
               f"{mont_layout.THREADS}, ms, plain_ms and the bound at T={P2_THREADS}", **common)
 

@@ -92,19 +92,27 @@ __global__ void h2r_g1_scan_mixed_kernel(const uint32_t* __restrict__ x1p,
                                          uint32_t* __restrict__ z3p, long long m, int c) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  uint32_t x[fq::N], y[fq::N], z[fq::N];
+  uint32_t x[fq::N], y[fq::N], z[fq::N], ax[fq::N], ay[fq::N];
   load8(x1p, i, x);
   load8(y1p, i, y);
   load8(z1p, i, z);
+  const long long end = (i + 1) * c;
+  load8(x2p, i * c, ax);
+  load8(y2p, i * c, ay);
 #pragma unroll 1
-  for (long long k = i * c; k < (i + 1) * c; ++k) {
-    uint32_t ax[fq::N], ay[fq::N];
-    load8(x2p, k, ax);
-    load8(y2p, k, ay);
+  for (long long k = i * c; k < end; ++k) {
+    // the next step's point is loaded while this step computes (the last
+    // step loads its own again)
+    const long long next = k + 1 < end ? k + 1 : k;
+    uint32_t nx[fq::N], ny[fq::N];
+    load8(x2p, next, nx);
+    load8(y2p, next, ny);
     add_mixed_lazy(x, y, z, ax, ay);
     store8_canon(x3p, k, x);
     store8_canon(y3p, k, y);
     store8_canon(z3p, k, z);
+#pragma unroll
+    for (int j = 0; j < fq::N; ++j) ax[j] = nx[j], ay[j] = ny[j];
   }
 }
 

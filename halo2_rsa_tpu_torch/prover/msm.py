@@ -272,6 +272,11 @@ def msm(scalars: torch.Tensor, points, z_one: bool = False):
     return tuple(c[0] for c in res)
 
 
+def msm_many_host(scalars: torch.Tensor, points):
+    """:func:`msm_many` + conversion to host affine points (list of P)."""
+    return g1_vec.points_from_device(msm_many(scalars, points))
+
+
 def msm_host(scalars_int, points_affine):
     """Host reference (slow): sum of s_i * P_i with Python ints."""
     acc = None

@@ -102,6 +102,15 @@ def test_msm_many_segmented_matches_jax_and_host(monkeypatch):
     _msm_case(p=2, n=70, seed=7, z_one=False)
 
 
+def test_msm_many_host_matches_host_sums():
+    pts = _points(37, 13)
+    scs = [_scalars(37, 14 + i) for i in range(2)]
+    st = tvf.from_ints(tntt.FR, [s for row in scs for s in row], mont=False,
+                       device="cpu").reshape(2, 37, 8)
+    got = tmsm.msm_many_host(st, tg1.points_to_device(pts, device="cpu"))
+    assert got == [tmsm.msm_host(row, pts) for row in scs]
+
+
 def test_run_msm_matches_jax_and_host():
     pts = _points(45, 11)
     pts[7] = None
