@@ -577,9 +577,6 @@ def k4_times(double, plain, shapes, pts) -> list:
         err = _max_abs_err(got, want)
         if err:
             raise AssertionError(f"K4 at {n} points, reps {reps}, differs from its plain version")
-        # at most ~1,000 launches queued behind the spin: past the card's
-        # launch queue the host waits for it (a checkout whose K4 takes no
-        # `reps` makes 8 launches per window)
         iters = 100 if kind == "path" else 50
         r = dict(kind=kind, n=n, reps=reps, max_abs_err=err,
                  ms=queued_ms(lambda q: double(q, reps), p, iters),

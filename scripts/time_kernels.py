@@ -21,7 +21,6 @@ is appended to that file.
 """
 
 import argparse
-import inspect
 import json
 import os
 import subprocess
@@ -92,28 +91,14 @@ def msm_rows(smoke) -> list:
     return out
 
 
-def k4_rows(smoke, recorded) -> tuple:
+def k4_rows(smoke, recorded) -> list:
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
     fq = g1_vec.FQ
     shapes = [(r["kind"], r["n"], r["reps"]) for r in recorded["k4"]["shapes"]]
-    # a checkout from before K4 took `reps` doubles a window as `reps`
-    # launches; this goes once no checkout to compare lacks `reps`
-    has_reps = "reps" in inspect.signature(cuda_g1.point_double).parameters
-
-    def window(kern):
-        if has_reps:
-            return lambda p, reps: kern(fq, p, reps)
-
-        def step(p, reps):
-            for _ in range(reps):
-                p = kern(fq, p)
-            return p
-
-        return step
-
-    return smoke.k4_times(window(cuda_g1.point_double), window(cuda_g1.point_double_plain),
-                          shapes, smoke.k4_points()), has_reps
+    return smoke.k4_times(lambda p, reps: cuda_g1.point_double(fq, p, reps),
+                          lambda p, reps: cuda_g1.point_double_plain(fq, p, reps),
+                          shapes, smoke.k4_points())
 
 
 def _mismatches(kernel: str, rows: list) -> list:
@@ -128,7 +113,8 @@ def _mismatches(kernel: str, rows: list) -> list:
                 for r in rec["shapes"]:
                     if "digest" in r:
                         seen.setdefault(_key(r), set()).add(r["digest"])
-    return [_key(r) for r in rows if "digest" in r and seen.get(_key(r), {r["digest"]}) != {r["digest"]}]
+    return [_key(r) for r in rows
+            if "digest" in r and seen.get(_key(r), {r["digest"]}) != {r["digest"]}]
 
 
 def _key(r) -> str:
@@ -151,11 +137,12 @@ def main() -> int:
         raise SystemExit("time_kernels: no CUDA device")
     with open(os.path.join(OUT_DIR, "chip_smoke.json")) as fh:
         recorded = json.load(fh)
+    one_launch = None  # K2: whether the checkout's scan is one launch
     if args.kernel == "k2":
         rows, one_launch = k2_rows(chip_smoke, recorded)
         rows += msm_rows(chip_smoke)
     else:
-        rows, one_launch = k4_rows(chip_smoke, recorded)
+        rows = k4_rows(chip_smoke, recorded)
     bad = _mismatches(args.kernel, rows)
     text = json.dumps(dict(
         kernel=args.kernel, root=os.path.relpath(root, HERE), card=torch.cuda.get_device_name(0),
