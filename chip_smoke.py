@@ -9,8 +9,9 @@ the script exits non-zero without its final line):
 2. build K1-K4 from halo2_rsa_tpu_torch/csrc with nvcc (sm_90a);
 3. kernel parity on the card: each kernel against its plain torch version
    (K1 at 2^20 products over four fields, K2-K4 at 2^16 points with the
-   identity, P+P and P+(-P)), all compared bitwise; K1 and K3 timed there
-   (K2's and K4's times are phase 6's);
+   identity, P+P and P+(-P), K3 also on coordinates lifted by q, as its lazy
+   core may hold them), all compared bitwise; K1 timed there (K2's, K3's and
+   K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
@@ -19,7 +20,8 @@ the script exits non-zero without its final line):
    warm prove (``chip_smoke.json``: ``g1_calls_per_warm_prove``); then K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
-   2^16 points with C = 1, and K4 at its shapes (one launch of 8 doublings
+   2^16 points with C = 1, K3 at its shapes and at 2^16 points, and K4 at
+   its shapes (one launch of 8 doublings
    per Horner window, over the P points of one ``msm_many`` call) and at
    2^16 points with 1 and 8 doublings, each bitwise against its plain
    version, timed as the card's time alone (the launches queued behind a
@@ -157,7 +159,9 @@ def phase_build(report):
     k4_use = [u for sym, u in usage.items() if "h2r_g1_double_kernel" in sym]
     spilled = [sym for sym, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")]
     k2_use = [u for sym, u in usage.items() if "h2r_g1_scan_mixed_kernel" in sym]
-    line(f"[2 build] ptxas: K2 {k2_use}, K4 {k4_use} | kernels that spill: {spilled or 'none'}")
+    k3_use = [u for sym, u in usage.items() if "h2r_g1_add_kernel" in sym]
+    line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K4 {k4_use} | kernels that spill: "
+         f"{spilled or 'none'}")
     listing = cuda_build.sass_listing(path)
     sass = {sym: collections.Counter(op for _, op, _ in insns) for sym, insns in listing.items()}
     names = dict(SASS_NAMES)
@@ -274,11 +278,34 @@ def _test_points(n: int, device):
 G1_SOURCES = {"K2": "g1_scan.cu", "K3": "g1.cu", "K4": "g1_double.cu"}
 
 
+def _plus_q(t):
+    """Canonical limbs (..., 8) -> the same residue plus q, in [q, 2q): a
+    value as the lazy core may hold it."""
+    import torch
+
+    from halo2_rsa_tpu_torch.fields import cuda_mont
+    from halo2_rsa_tpu_torch.prover import curve
+
+    v, out, carry = cuda_mont.u64(t), [], 0
+    for j in range(8):
+        s = v[..., j] + ((curve.Q >> (32 * j)) & 0xFFFFFFFF) + carry
+        out.append(s & 0xFFFFFFFF)
+        carry = s >> 32
+    return cuda_mont.to_int32(torch.stack(out, dim=-1))
+
+
+def _lifted(pt, lifts):
+    """pt with coordinate k (0 X, 1 Y, 2 Z) lifted by q on each (k, lanes)."""
+    out = [c.clone() for c in pt]
+    for k, lanes in lifts:
+        out[k][lanes] = _plus_q(out[k][lanes])
+    return tuple(out)
+
+
 def _parity_g1(report, kernels):
     import torch
 
     from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec
-    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
 
     n = 1 << 16
     fq = g1_vec.FQ
@@ -297,9 +324,7 @@ def _parity_g1(report, kernels):
     aff2m = aff[1:] + aff[:1]
     p2m = tuple(c.roll(-1, dims=0).contiguous() for c in affxy)
 
-    # each kernel and plain version takes the first operand, so it can be
-    # timed as a chain p = f(p); K2 and K4 are timed at their own shapes in
-    # phase 6
+    # K2, K3 and K4 are timed at their own shapes in phase 6
     cases = {
         "K2": ("g1_add_mixed", lambda p: cuda_g1.point_add_mixed(fq, p, p2m),
                lambda p: cuda_g1.point_add_mixed_plain(fq, p, p2m),
@@ -325,18 +350,23 @@ def _parity_g1(report, kernels):
             name=name, route="cuda", source=f"halo2_rsa_tpu_torch/csrc/{G1_SOURCES[key]}",
             replaces=f"halo2_rsa_tpu/prover/pallas_g1.py:{pallas_line}", max_abs_err=err,
         )
-        if key != "K3":
-            line(f"[3 parity] {key} {name}: 2^16 points bitwise equal (identity, P+P, P-P, "
-                 f"host affine)")
-            continue
-        ms = queued_ms(kern, p1, QUEUED_ITERS)
-        host_ms = chain_ms(kern, p1, QUEUED_ITERS)
-        plain_ms = chain_ms(plain, p1, 3)
-        kernels[key].update(ms=ms, host_paced_ms=host_ms, plain_ms=plain_ms,
-                            shape=f"{n} points", timing="queued")
+        extra = ""
+        if key == "K3":
+            # coordinates in [q, 2q), as the lazy core holds them between
+            # steps: X = Z = q on the identities of both sides (lanes
+            # 129-191), Y of P1 and of -P, Z and X of either side elsewhere
+            lp1 = _lifted(p1, [(0, slice(129, 192)), (2, slice(129, 192)), (1, slice(0, 64)),
+                               (1, slice(256, 512)), (2, slice(512, 768)), (0, slice(768, 1024))])
+            lp2 = _lifted(p2, [(0, slice(129, 192)), (2, slice(129, 192)), (1, slice(64, 128)),
+                               (2, slice(384, 640)), (0, slice(1024, 1280))])
+            lazy = cuda_g1.point_add(fq, lp1, lp2)
+            torch.cuda.synchronize()
+            err = _max_abs_err(lazy, want)
+            if err:
+                raise AssertionError(f"K3 on lifted coordinates differs from its plain version: {err}")
+            extra = "; also on coordinates lifted by q"
         line(f"[3 parity] {key} {name}: 2^16 points bitwise equal (identity, P+P, P-P, "
-             f"host affine) | card {ms:.4f} ms, host-paced {host_ms:.4f} ms, "
-             f"plain {plain_ms:.3f} ms")
+             f"host affine{extra})")
 
 
 def phase_parity(report, kernels):
@@ -587,6 +617,38 @@ def k4_times(double, plain, shapes, pts) -> list:
     return out
 
 
+def k3_times(add, plain, shapes, pts) -> list:
+    """K3 at each (kind, n) of ``shapes``: ``add(p, q)`` on the first n of
+    ``pts`` and the same n rotated by one, hashed (``digest``, for comparing
+    checkouts) and, given ``plain``, held bitwise against ``plain(p, q)``;
+    then ms per launch on the card alone (``queued_ms``) and paced by the
+    host (``chain_ms``), and the plain version's ms at the path's shapes.
+    ``scripts/time_kernels.py`` runs it on another checkout's wrappers."""
+    import torch
+
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    out = []
+    for kind, n in shapes:
+        p = tuple(c[:n].contiguous() for c in pts)
+        q = tuple(c.roll(1, dims=0) for c in p)
+        got = add(p, q)
+        r = dict(kind=kind, n=n, digest=_digest(got))
+        if plain is not None:
+            want = plain(p, q)
+            torch.cuda.synchronize()
+            r["max_abs_err"] = _max_abs_err(got, want)
+            if r["max_abs_err"]:
+                raise AssertionError(f"K3 at {n} points differs from its plain version")
+            if kind == "path":
+                r["plain_ms"] = chain_ms(lambda x: plain(x, q), p, 3)
+        step = lambda x: add(x, q)  # noqa: E731
+        r.update(ms=queued_ms(step, p, QUEUED_ITERS),
+                 host_paced_ms=chain_ms(step, p, QUEUED_ITERS))
+        out.append(r)
+    return out
+
+
 def _empty_launch(report):
     """An empty launch (a zero-cycle spin) timed on the card alone and paced
     by the host."""
@@ -714,6 +776,31 @@ def phase_k2(report, kernels):
         max_abs_err=max([kernels["K2"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
         shape=f"{row['m']} rows x C {row['c']} (the bucket scan of one pipeline of the "
               f"flagship's largest msm_many call)", timing="queued",
+    )
+
+
+def phase_k3(report, kernels):
+    """K3 at the path's shapes and at 2^16 points (``k3_times``)."""
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+
+    fq = g1_vec.FQ
+    hist = {n: k for n, k in report["flagship"]["g1_calls_per_warm_prove"]["K3"]}
+    shapes = [("path", n) for n in sorted(hist, reverse=True)] + [("parity", K4_BIG)]
+    out = k3_times(lambda p, q: cuda_g1.point_add(fq, p, q),
+                   lambda p, q: cuda_g1.point_add_plain(fq, p, q), shapes, k4_points())
+    for r in out:
+        r["launches_per_warm_prove"] = hist.get(r["n"], 0) if r["kind"] == "path" else 0
+        line(f"[6 K3] {r['kind']} n={r['n']}: bitwise equal | card {r['ms']:.4f} ms, host-paced "
+             f"{r['host_paced_ms']:.4f} ms"
+             + (f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else "")
+             + f" | {r['launches_per_warm_prove']} launches per warm prove")
+    report["k3"] = dict(shapes=out)
+    # the kernels line's K3 row: the path's largest shape
+    row = _path_row(out, "n")
+    kernels["K3"].update(
+        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
+        max_abs_err=max([kernels["K3"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
+        shape=f"{row['n']} points (the flagship's widest K3 launch)", timing="queued",
     )
 
 
@@ -880,6 +967,11 @@ def _k4_part(sass, r):
     return _looped(sass, "K4", r["n"], r["reps"], 6 * 32)
 
 
+def _k3_part(sass, r):
+    # reads 6 coordinates and writes 3 per point
+    return (r["n"], 9 * 32, sass["K3"])
+
+
 def _path_row(shapes, size: str):
     return max((r for r in shapes if r["kind"] == "path"), key=lambda r: r[size])
 
@@ -911,7 +1003,7 @@ def phase_bounds(report, kernels):
     work = {  # key -> [(elements, bytes per element, SASS counts per element)]
         "K1": [(1 << 20, 96, sass["K1"])],
         "K2": [_k2_part(sass, _path_row(report["k2"]["shapes"], "m"))],
-        "K3": [(1 << 16, 9 * 32, sass["K3"])],
+        "K3": [_k3_part(sass, _path_row(report["k3"]["shapes"], "n"))],
         "K4": [_k4_part(sass, _path_row(report["k4"]["shapes"], "n"))],
         "P1": [(n_p1, 12, sass[f"P1/{b}"]) for b in bodies],
         "P2-lm": [(1 << P2_LOG_N, 96, sass["P2-lm"])],
@@ -935,21 +1027,34 @@ def phase_bounds(report, kernels):
              f"({k['bound_by']}; bytes {sum(mem):.4f}, pipes/issue {sum(ops):.4f}; int at P1's "
              f"rate {p1_rate_ms:.4f}) = {k['bound_ms'] / k['ms'] * 100:.1f} % of bound")
     empty = report["empty_launch"]["ms"]
-    for key, step, part, size in (("K2", "add", _k2_part, "m"), ("K4", "doubling", _k4_part, "n")):
+    line("[9 bounds] K3 SASS per add (the whole kernel: load, add, canonicalise, store): FMA "
+         "pipe {fma}, ALU pipe {alu}, issued {issued}".format(**sass["K3"]))
+    for key, step in (("K2", "add"), ("K4", "doubling")):
         line(f"[9 bounds] {key} SASS per {step} (its loop body): FMA pipe {{fma}}, ALU pipe "
              "{alu}, issued {issued}".format(**sass[key]["body"])
              + "; once per thread (load, canonicalise, store): FMA pipe {fma}, ALU pipe {alu}, "
                "issued {issued}".format(**sass[key]["rest"]))
+    # the next redesign's rank: launches per warm prove x (kernel ms - bound
+    # ms), summed over each kernel's path shapes (K1 at its parity shape)
+    k1 = kernels["K1"]
+    rank = {"K1": k1["launches_per_warm_prove"] * (k1["ms"] - k1["bound_ms"])}
+    for key, part, dims in (("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
+                            ("K3", _k3_part, lambda r: f"n={r['n']}"),
+                            ("K4", _k4_part, lambda r: f"n={r['n']} reps={r['reps']}")):
+        rank[key] = 0.0
         for r in report[key.lower()]["shapes"]:
             n, nb, cnt = part(sass, r)
             mem = n * nb / HBM_BYTES_S * 1e3
             ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3
             r.update(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations",
                      bytes_ms=mem, ops_ms=ops)
-            dims = f"m={n} C={r['c']}" if key == "K2" else f"n={n} reps={r['reps']}"
-            line(f"[9 bounds] {key} {r['kind']} {dims}: {r['ms']:.4f} ms vs bound "
+            rank[key] += r["launches_per_warm_prove"] * (r["ms"] - r["bound_ms"])
+            line(f"[9 bounds] {key} {r['kind']} {dims(r)}: {r['ms']:.4f} ms vs bound "
                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {mem:.6f}, pipes/issue "
                  f"{ops:.6f}); empty launch {empty:.4f} ms")
+    report["rank_ms_per_warm_prove"] = rank
+    line("[9 bounds] rank, launches per warm prove x (ms - bound ms): " + ", ".join(
+        f"{k_} {v:.2f} ms" for k_, v in rank.items()))
 
 
 def main() -> int:
@@ -964,6 +1069,7 @@ def main() -> int:
     phase_flagship(report, kernels)
     _empty_launch(report)
     phase_k2(report, kernels)
+    phase_k3(report, kernels)
     phase_k4(report, kernels)
     phase_p1(report, kernels)
     phase_p2(report, kernels)

@@ -1,5 +1,6 @@
 // Lazy-reduced BN254 Fq arithmetic over 8 x 32-bit little-endian limbs, for
-// K4 (g1_double.cu) and K2 (g1_scan.cu) only. Values are in Montgomery form (R = 2^256) like
+// the G1 kernels only: K4 (g1_double.cu), K2 (g1_scan.cu) and K3 (g1.cu,
+// g1_rows.cu, through g1_lazy.cuh). Values are in Montgomery form (R = 2^256) like
 // field.cuh's, but between steps they live in [0, 2q) instead of [0, q), and
 // every carry chain is one PTX add.cc/addc, sub.cc/subc or mad.lo.cc/madc.hi.cc
 // chain on 32-bit limbs (the carry flag), one asm statement each, instead of

@@ -24,7 +24,7 @@
 // as two 16-byte accesses each.
 #include <cuda_runtime.h>
 
-#include "fq_lazy.cuh"
+#include "g1_lazy.cuh"
 
 // One mixed add in place, (x, y, z) += (ax, ay), every value in [0, 2q); the
 // steps of RCB15 algorithm 8 as in the Pallas kernel.
@@ -59,27 +59,6 @@ __device__ __forceinline__ void add_mixed_lazy(uint32_t x[fq::N], uint32_t y[fq:
   fq::mul(trip0, t3, m0);
   fq::mul(z3t, t4, m1);
   fq::add(m1, m0, z);  // Z3
-}
-
-// Element i of an array of 8-limb values, as two 16-byte accesses (the
-// wrapper requires 16-byte aligned tensors).
-__device__ __forceinline__ void load8(const uint32_t* __restrict__ p, long long i,
-                                      uint32_t r[fq::N]) {
-  const uint4* s = reinterpret_cast<const uint4*>(p) + 2 * i;
-  uint4 a = s[0], b = s[1];
-  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
-}
-
-// Stores a in [0, 2q) as its canonical residue.
-__device__ __forceinline__ void store8_canon(uint32_t* __restrict__ p, long long i,
-                                             const uint32_t a[fq::N]) {
-  uint32_t r[fq::N];
-#pragma unroll
-  for (int j = 0; j < fq::N; ++j) r[j] = a[j];
-  fq::canon(r);
-  uint4* d = reinterpret_cast<uint4*>(p) + 2 * i;
-  d[0] = make_uint4(r[0], r[1], r[2], r[3]);
-  d[1] = make_uint4(r[4], r[5], r[6], r[7]);
 }
 
 // Start points (m, 8) per coordinate, affine points and prefixes (m, c, 8).

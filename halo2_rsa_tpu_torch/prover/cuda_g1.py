@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, mont_mul_u64, p_arg, to_int32, u64
+from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, mont_mul_u64, to_int32, u64
 from ..fields.field import BN254_FQ
 from ..fields.vecfield import add_u64 as add, sub_u64 as sub
 
@@ -198,14 +198,22 @@ def _check_fq(fc, key: str) -> None:
         raise ValueError(f"{key} is built for BN254 Fq, not {fc.field.name}")
 
 
+def _check_aligned(ins, key: str) -> None:
+    """The lazy-core kernels move each coordinate as two 16-byte accesses."""
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError(f"{key}'s tensors must be 16-byte aligned")
+
+
 def point_add(fc, p1, p2):
-    """K3: complete projective P1 + P2."""
+    """K3: complete projective P1 + P2. The kernel is built for BN254 Fq, so
+    any other field raises."""
     if p1[0].device.type == "cpu":
         return point_add_plain(fc, p1, p2)
+    _check_fq(fc, "K3")
     ins = tuple(p1) + tuple(p2)
     check_kernel_args(*ins)
-    return _launch("g1_add", "h2r_g1_add", ins, _empty3(ins[0]), ins[0].numel() // LIMBS,
-                   p_arg(fc), fc.n0inv32)
+    _check_aligned(ins, "K3")
+    return _launch("g1_add", "h2r_g1_add", ins, _empty3(ins[0]), ins[0].numel() // LIMBS)
 
 
 def _scan_mixed(fc, p1, pts_xy):
@@ -214,8 +222,7 @@ def _scan_mixed(fc, p1, pts_xy):
     check_kernel_args(*p1)
     check_kernel_args(*pts_xy)
     ins = tuple(p1) + tuple(pts_xy)
-    if any(t.data_ptr() % 16 for t in ins):
-        raise ValueError("K2's tensors must be 16-byte aligned")
+    _check_aligned(ins, "K2")
     return _launch("g1_add_mixed", "h2r_g1_scan_mixed", ins, _empty3(pts_xy[0]),
                    p1[0].numel() // LIMBS, c)
 

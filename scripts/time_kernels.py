@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time K2 (the bucket scan's mixed add) or K4 (the Horner combine's
-doubling) of ``halo2_rsa_tpu_torch`` in another checkout at the shapes
-``chip_smoke.py`` recorded, so that two commits can be compared inside one
-run on the same card.
+"""Time K2 (the bucket scan's mixed add), K3 (the complete add) or K4 (the
+Horner combine's doubling) of ``halo2_rsa_tpu_torch`` in another checkout at
+the shapes ``chip_smoke.py`` recorded, so that two commits can be compared
+inside one run on the same card.
 
     python3 chip_smoke.py                                  # records the shapes
-    python3 scripts/time_kernels.py --kernel k2|k4 [--root DIR]
+    python3 scripts/time_kernels.py --kernel k2|k3|k4 [--root DIR]
 
 ``--root`` is the checkout to time (default: this one); its kernels build
 inside it. The shapes are read from ``chiprun_out/chip_smoke.json`` (phase
@@ -16,8 +16,10 @@ sliced beforehand), then times ``msm_many`` at the flagship's four shapes (P
 with a sync). Every prefix and MSM result is hashed, and each hash must
 equal that of every earlier line of the same kernel and shape in
 ``chiprun_out/time_kernels.jsonl``: the checkouts compared agree bit for
-bit. ``k4`` runs ``chip_smoke.k4_times``. One JSON line goes to stdout and
-is appended to that file.
+bit. ``k3`` runs ``chip_smoke.k3_times`` at K3's recorded shapes and 2^16
+points, then the same ``msm_many`` timings. ``k4`` runs
+``chip_smoke.k4_times``. One JSON line goes to stdout and is appended to
+that file.
 """
 
 import argparse
@@ -91,6 +93,15 @@ def msm_rows(smoke) -> list:
     return out
 
 
+def k3_rows(smoke, recorded) -> list:
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+
+    fq = g1_vec.FQ
+    shapes = [(r["kind"], r["n"]) for r in recorded["k3"]["shapes"]]
+    return smoke.k3_times(lambda p, q: cuda_g1.point_add(fq, p, q), None, shapes,
+                          smoke.k4_points())
+
+
 def k4_rows(smoke, recorded) -> list:
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
@@ -123,7 +134,7 @@ def _key(r) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k2", "k4"), required=True)
+    ap.add_argument("--kernel", choices=("k2", "k3", "k4"), required=True)
     ap.add_argument("--root", default=HERE)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -141,6 +152,8 @@ def main() -> int:
     if args.kernel == "k2":
         rows, one_launch = k2_rows(chip_smoke, recorded)
         rows += msm_rows(chip_smoke)
+    elif args.kernel == "k3":
+        rows = k3_rows(chip_smoke, recorded) + msm_rows(chip_smoke)
     else:
         rows = k4_rows(chip_smoke, recorded)
     bad = _mismatches(args.kernel, rows)

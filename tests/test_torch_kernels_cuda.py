@@ -5,8 +5,8 @@ The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
 The argument checks, the CPU dispatch, the SASS loop split and a limb-level
-model of the lazy field core (csrc/fq_lazy.cuh) and of K4's and K2's steps
-on it run everywhere.
+model of the lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's
+steps on it run everywhere.
 """
 
 import os
@@ -146,6 +146,21 @@ def test_k2_wrappers_reject_bad_c_other_fields_and_shapes(cuda):
         with pytest.raises(ValueError):
             cuda_g1.point_add_mixed(*args)
     assert cuda_g1.LAUNCHES["g1_add_mixed"] == before
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_rejects_other_fields_and_misaligned_tensors(cuda):
+    pts = _points(4, cuda)
+    before = cuda_g1.LAUNCHES["g1_add"]
+    for field in ALL_FIELDS:
+        if field.p != g1_vec.FQ.field.p:
+            with pytest.raises(ValueError):
+                cuda_g1.point_add(vecfield.consts(field), pts, pts)
+    off = tuple(torch.zeros(8 * 4 + 1, dtype=torch.int32, device=cuda)[1:].view(4, 8)
+                for _ in range(3))
+    with pytest.raises(ValueError):
+        cuda_g1.point_add(g1_vec.FQ, off, pts)  # 4 bytes past a 16-byte boundary
+    assert cuda_g1.LAUNCHES["g1_add"] == before
 
 
 def _fq_lazy_constants() -> dict:
@@ -482,6 +497,74 @@ def test_k2_lazy_core_model_scans_like_the_plain_version(steps):
             x, y, z = _add_mixed_lazy(x, y, z, ax, ay, lost, seen)
             for c, v in zip(want, (x, y, z)):
                 assert _int(_canon(v)) == ints(c[row])[j], (steps, row, j)
+    assert lost and not any(lost)
+    assert all(_int(v) < 2 * FQL["q"] for v in seen)
+
+
+def _add_lazy(x, y, z, x2, y2, z2, lost, seen):
+    """g1_lazy.cuh's add_lazy; every value it makes goes into ``seen``."""
+    def k(v):
+        seen.append(v)
+        return v
+
+    t0, t1, t2 = (k(_mul(a, b, lost)) for a, b in ((x, x2), (y, y2), (z, z2)))
+    t3 = k(_sub(k(_mul(k(_add(x, y, lost)), k(_add(x2, y2, lost)), lost)), k(_add(t0, t1, lost)),
+                lost))
+    t4 = k(_sub(k(_mul(k(_add(y, z, lost)), k(_add(y2, z2, lost)), lost)), k(_add(t1, t2, lost)),
+                lost))
+    t5 = k(_sub(k(_mul(k(_add(x, z, lost)), k(_add(x2, z2, lost)), lost)), k(_add(t0, t2, lost)),
+                lost))
+    trip0 = k(_mul_small(3, t0, lost))
+    t2 = k(_mul_small(9, t2, lost))
+    z3t = k(_add(t1, t2, lost))
+    t1 = k(_sub(t1, t2, lost))
+    t5 = k(_mul_small(9, t5, lost))
+    x = k(_sub(k(_mul(t3, t1, lost)), k(_mul(t4, t5, lost)), lost))
+    y = k(_add(k(_mul(t1, z3t, lost)), k(_mul(t5, trip0, lost)), lost))
+    z = k(_add(k(_mul(z3t, t4, lost)), k(_mul(trip0, t3, lost)), lost))
+    return x, y, z
+
+
+def _projective(pts, zs):
+    """(X, Y, Z) int32 tensors of (x z, y z, z) per affine point, (0, z, 0)
+    for the identity."""
+    q = curve.Q
+    coords = [[0 if p is None else p[0] * z % q for p, z in zip(pts, zs)],
+              [z if p is None else p[1] * z % q for p, z in zip(pts, zs)],
+              [0 if p is None else z for p, z in zip(pts, zs)]]
+    return tuple(vecfield.from_ints(g1_vec.FQ, c, device="cpu") for c in coords)
+
+
+@pytest.mark.parametrize("lifts", [(), ((0, 1),), ((1, 2),), ((0, 2), (1, 1)),
+                                   ((0, 0), (0, 2), (1, 0), (1, 2))],
+                         ids=["canonical", "Y1+q", "Z2+q", "Z1+q,Y2+q", "X,Z+q both"])
+def test_k3_lazy_core_model_adds_like_the_plain_version(lifts):
+    """The model of add_lazy, canonicalised once (as the kernel's store
+    does), equals the plain add bit for bit on P+P, the identity + Q, P+(-P),
+    P + the identity, the identity + the identity and P+Q, all with random
+    Z, with the coordinates of ``lifts`` ((side, coordinate) pairs) lifted
+    by q on every lane (an identity's X and Z then equal q, which is 0);
+    every intermediate stays below 2q and no chain drops a carry."""
+    rng = random.Random(41)
+    a, b, c, d, e, f = (curve.g1_mul(curve.G1_GEN, rng.randrange(1, curve.R)) for _ in range(6))
+    lhs = [a, None, c, d, None, e]
+    rhs = [a, b, curve.g1_neg(c), None, None, f]
+    p1 = _projective(lhs, [rng.randrange(1, curve.Q) for _ in lhs])
+    p2 = _projective(rhs, [rng.randrange(1, curve.Q) for _ in rhs])
+    want = cuda_g1.point_add_plain(g1_vec.FQ, p1, p2)
+    assert g1_vec.points_from_device(want) == [curve.g1_add(u, v) for u, v in zip(lhs, rhs)]
+
+    def ints(t):
+        return [_int(limbs) for limbs in (t.to(torch.int64) & M32).tolist()]
+
+    sides = [[ints(t) for t in p1], [ints(t) for t in p2]]
+    for side, coord in lifts:
+        sides[side][coord] = [v + FQL["q"] for v in sides[side][coord]]
+    lost, seen = [], []
+    for lane in range(len(lhs)):
+        ops = [_limbs(sides[s_][k_][lane]) for s_ in (0, 1) for k_ in range(3)]
+        out = _add_lazy(*ops, lost, seen)
+        assert [_int(_canon(v)) for v in out] == [ints(t)[lane] for t in want], lane
     assert lost and not any(lost)
     assert all(_int(v) < 2 * FQL["q"] for v in seen)
 
