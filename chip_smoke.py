@@ -55,6 +55,7 @@ Usage: python3 chip_smoke.py   (needs one CUDA card and nvcc)
 
 import collections
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -81,6 +82,10 @@ QUEUED_ITERS = 50  # launches per queued_ms chain at the parity shapes
 # = 64 launches per call, and ~1,000 queued launches outgrow the card's
 # launch queue (the host then waits)
 K2_ITERS = 15
+# row-scan calls per timed chain: a checkout without the scan kernel runs
+# each scan as ~100-200 launches, and the chain must stay within the card's
+# launch queue
+K3_SCAN_ITERS = 4
 QUEUE_LEAD_MS = 20.0  # queued_ms's first spin, lengthened while the host needs longer
 
 
@@ -137,6 +142,8 @@ SASS_NAMES = {
     "K1": ("h2r_mont_mul_kernel", ()),
     "K2": ("h2r_g1_scan_mixed_kernel", ()),
     "K3": ("h2r_g1_add_kernel", ()),
+    "K3-scan": ("h2r_g1_scan_rows_kernel", (0,)),  # one block per row
+    "K3-scan/cluster": ("h2r_g1_scan_rows_kernel", (1,)),  # a cluster of blocks per row
     "K4": ("h2r_g1_double_kernel", ()),
     "P2-lm": ("h2r_mont_mul_lm_kernel", ()),
     "P2-staged": ("h2r_mont_mul_staged_kernel", (P2_THREADS,)),
@@ -155,13 +162,14 @@ def phase_build(report):
     dt = time.perf_counter() - t0
     usage = ptxas_usage(log.getvalue())
     report["build"] = dict(seconds=dt, library=os.path.relpath(path, HERE), ptxas=usage)
-    line(f"[2 build] K1-K4, P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
+    line(f"[2 build] K1-K4 (K3 with its row scans), P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
     k4_use = [u for sym, u in usage.items() if "h2r_g1_double_kernel" in sym]
     spilled = [sym for sym, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")]
     k2_use = [u for sym, u in usage.items() if "h2r_g1_scan_mixed_kernel" in sym]
     k3_use = [u for sym, u in usage.items() if "h2r_g1_add_kernel" in sym]
-    line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K4 {k4_use} | kernels that spill: "
-         f"{spilled or 'none'}")
+    scan_use = [u for sym, u in usage.items() if "h2r_g1_scan_rows_kernel" in sym]
+    line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K3-scan {scan_use}, K4 {k4_use} | "
+         f"kernels that spill: {spilled or 'none'}")
     listing = cuda_build.sass_listing(path)
     sass = {sym: collections.Counter(op for _, op, _ in insns) for sym, insns in listing.items()}
     names = dict(SASS_NAMES)
@@ -369,9 +377,77 @@ def _parity_g1(report, kernels):
              f"host affine{extra})")
 
 
+K3_SCAN_CLUSTERS = (1, 2, 4, 8)  # blocks per row the scan kernel is checked and timed with
+
+
+def k3_scan_inputs(rows: int, length: int):
+    """The row scans' inputs on the card: (rows, length) projective points
+    from ``_test_points``; row 0 all the identity, row 1 one point repeated
+    (P+P in round 0), row 2 pairs (P, -P) (P+(-P) in round 0), row 3 the
+    identity on every even element. A shape (rows', length') takes the first
+    rows' rows and length' columns."""
+    import torch
+
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.prover import g1_vec
+
+    _, _, proj = _test_points(rows * length, "cuda")
+    ps = tuple(c.reshape(rows, length, 8).clone() for c in proj)
+    ident = g1_vec.identity((length,), device="cuda")
+    odd = length // 2
+    for c, i in zip(ps, ident):
+        c[0] = i
+        c[1] = c[1, 0].clone()
+        c[2, 1::2] = c[2, 0::2][:odd].clone()
+        c[3, 0::2] = i[0::2]
+    ps[1][2, 1::2] = vecfield.sub(g1_vec.FQ, torch.zeros_like(ps[1][2, 1::2]), ps[1][2, 1::2])
+    return ps
+
+
+def _parity_scan(report, kernels):
+    """The row scans at the flagship's widest shapes, (128, 512) and (128,
+    255) with the tree, bitwise against their plain versions, with every
+    cluster size; the affine sums of rows 0-2 against the host."""
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec
+
+    fq = g1_vec.FQ
+    rows = k3_scan_inputs(128, 512)
+    worst = 0
+    for n, tree, wrapper, plain in ((512, False, cuda_g1.point_scan, cuda_g1.point_scan_plain),
+                                    (255, True, cuda_g1.point_scan_sum,
+                                     cuda_g1.point_scan_sum_plain)):
+        s = tuple(c[:, :n].contiguous() for c in rows)
+        got, want = wrapper(fq, s), plain(fq, s)
+        torch.cuda.synchronize()
+        errs = [_max_abs_err(got, want)] + [
+            _max_abs_err(cuda_g1._scan_rows(fq, s, tree, k), want) for k in K3_SCAN_CLUSTERS]
+        if any(errs):
+            raise AssertionError(f"K3-scan at (128, {n}), tree {tree}, differs from its plain "
+                                 f"version: {errs}")
+        worst = max(worst, *errs)
+        # rows 0-2 on the host: a scan's last prefix, a tree's sum of every
+        # prefix (row 1's prefixes are 1..n times its P; row 2's are its
+        # even elements, each followed by the identity)
+        p = g1_vec.points_from_device(tuple(c[1, :1] for c in s))[0]
+        evens = g1_vec.points_from_device(tuple(c[2, 0::2] for c in s))
+        host = ([None, curve.g1_mul(p, n * (n + 1) // 2), functools.reduce(curve.g1_add, evens)]
+                if tree else [None, curve.g1_mul(p, n), evens[-1] if n % 2 else None])
+        ends = tuple(c[:3] if tree else c[:3, -1] for c in got)
+        assert g1_vec.points_from_device(ends) == host, (n, tree)
+    kernels["K3-scan"] = dict(
+        name="point_scan_rows", route="cuda", source="halo2_rsa_tpu_torch/csrc/g1_rows.cu",
+        replaces="halo2_rsa_tpu/prover/pallas_g1.py:43", max_abs_err=worst,
+    )
+    line(f"[3 parity] K3-scan point_scan_rows: (128, 512) scan and (128, 255) with the tree "
+         f"bitwise equal (identity rows, P+P, P-P) with {K3_SCAN_CLUSTERS} blocks per row")
+
+
 def phase_parity(report, kernels):
     _parity_k1(report, kernels)
     _parity_g1(report, kernels)
+    _parity_scan(report, kernels)
 
 
 def phase_golden(report):
@@ -452,6 +528,7 @@ def phase_flagship(report, kernels):
             "K1": cuda_mont.LAUNCHES["mont_mul"],
             "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
             "K3": cuda_g1.LAUNCHES["g1_add"],
+            "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
             "K4": cuda_g1.LAUNCHES["g1_double"],
         }
 
@@ -506,20 +583,25 @@ def phase_flagship(report, kernels):
 def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
     """{kernel: [[shape..., launches], ...]} over one more warm prove, read
     by pass-through wrappers around the K2-K4 wrappers (launch counts are
-    already taken): K2 (rows, C), K3 (points,), K4 (points, doublings). Each
-    kernel's launches must add up to its count over a warm prove."""
+    already taken): K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the
+    tree else 0), K4 (points, doublings). Each kernel's launches must add up
+    to its count over a warm prove."""
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
-    calls = {"K2": collections.Counter(), "K3": collections.Counter(),
-             "K4": collections.Counter()}
+    calls = {key: collections.Counter() for key in ("K2", "K3", "K3-scan", "K4")}
 
     def points(t):
         return t.numel() // t.shape[-1]
+
+    def rows(t):
+        return points(t) // t.shape[-2]
 
     shape_of = {
         "point_scan_mixed": ("K2", lambda fc, p1, pts: (points(p1[0]), pts[0].shape[-2])),
         "point_add_mixed": ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
         "point_add": ("K3", lambda fc, p1, p2: (points(p1[0]),)),
+        "point_scan": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 0)),
+        "point_scan_sum": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 1)),
         "point_double": ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
     }
     real = {name: getattr(cuda_g1, name) for name in shape_of}
@@ -646,6 +728,44 @@ def k3_times(add, plain, shapes, pts) -> list:
         r.update(ms=queued_ms(step, p, QUEUED_ITERS),
                  host_paced_ms=chain_ms(step, p, QUEUED_ITERS))
         out.append(r)
+    return out
+
+
+def k3_scan_times(make, shapes, rows, plain=None) -> list:
+    """The row scans at each (kind, rows, len, tree) of ``shapes``, on the
+    first rows x len points of ``rows``. ``make(s, tree)`` returns a call
+    that computes them: one scan launch, or, for a checkout without
+    ``point_scan``, its round-by-round ``msm._hs_point_scan`` or
+    ``msm._bucket_reduce``. The result is hashed (``digest``) and, given
+    ``plain(s, tree)``, held bitwise against it (``plain_ms`` that run's);
+    then ms per call on the card alone (``queued_ms``) and paced by the
+    host (``chain_ms``). ``scripts/time_kernels.py`` runs it on another
+    checkout's wrappers."""
+    import torch
+
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    out = []
+    for kind, m, n, tree in shapes:
+        s = tuple(c[:m, :n].contiguous() for c in rows)
+        call = make(s, tree)
+        got = call()
+        res = dict(kind=kind, rows=m, len=n, tree=tree, digest=_digest(got))
+        if plain is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(s, tree)
+            torch.cuda.synchronize()
+            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            res["max_abs_err"] = _max_abs_err(got, want)
+            if res["max_abs_err"]:
+                raise AssertionError(f"K3-scan at {m} rows x {n}, tree {tree}, differs from its "
+                                     "plain version")
+        del got
+        step = lambda q: (call(), q)[1]  # noqa: E731
+        res.update(ms=queued_ms(step, s[0], K3_SCAN_ITERS),
+                   host_paced_ms=chain_ms(step, s[0], K3_SCAN_ITERS))
+        out.append(res)
     return out
 
 
@@ -780,7 +900,8 @@ def phase_k2(report, kernels):
 
 
 def phase_k3(report, kernels):
-    """K3 at the path's shapes and at 2^16 points (``k3_times``)."""
+    """K3 at the path's shapes and at 2^16 points (``k3_times``), and its
+    row scans at theirs (``k3_scan_times``)."""
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
     fq = g1_vec.FQ
@@ -801,6 +922,41 @@ def phase_k3(report, kernels):
         ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
         max_abs_err=max([kernels["K3"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
         shape=f"{row['n']} points (the flagship's widest K3 launch)", timing="queued",
+    )
+
+    # the row scans at their recorded shapes, with the wrappers' cluster
+    # choice, then with every cluster size
+    hist = {(m, n, t): k for m, n, t, k in report["flagship"]["g1_calls_per_warm_prove"]["K3-scan"]}
+    shapes = [("path", m, n, t) for m, n, t in sorted(hist, reverse=True)]
+    rows = k3_scan_inputs(max(m for _, m, _, _ in shapes), max(n for _, _, n, _ in shapes))
+    wrapper = {0: cuda_g1.point_scan, 1: cuda_g1.point_scan_sum}
+    plain = {0: cuda_g1.point_scan_plain, 1: cuda_g1.point_scan_sum_plain}
+    out = k3_scan_times(lambda s, t: lambda: wrapper[t](fq, s), shapes, rows,
+                        plain=lambda s, t: plain[t](fq, s))
+    for r in out:
+        r["launches_per_warm_prove"] = hist[r["rows"], r["len"], r["tree"]]
+        r["cluster"] = cuda_g1.scan_cluster(r["len"], bool(r["tree"]))
+        r["cluster_ms"] = {}
+        for k in K3_SCAN_CLUSTERS:
+            (t,) = k3_scan_times(
+                lambda s, t_, k=k: lambda: cuda_g1._scan_rows(fq, s, bool(t_), k),
+                [(r["kind"], r["rows"], r["len"], r["tree"])], rows)
+            if t["digest"] != r["digest"]:
+                raise AssertionError(f"K3-scan with {k} blocks per row differs at {r['rows']} "
+                                     f"rows x {r['len']}")
+            r["cluster_ms"][k] = t["ms"]
+        line(f"[6 K3-scan] path rows={r['rows']} L={r['len']} tree={r['tree']}: bitwise equal | "
+             f"card {r['ms']:.4f} ms ({r['cluster']} blocks per row), host-paced "
+             f"{r['host_paced_ms']:.4f} ms, plain {r['plain_ms']:.1f} ms | blocks per row: "
+             + ", ".join(f"{k} {ms:.4f}" for k, ms in r["cluster_ms"].items())
+             + f" ms | {r['launches_per_warm_prove']} launches per warm prove")
+    report["k3_scan"] = dict(shapes=out)
+    row = max(out, key=lambda r: r["rows"] * r["len"])
+    kernels["K3-scan"].update(
+        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
+        max_abs_err=max([kernels["K3-scan"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
+        shape=f"{row['rows']} rows x {row['len']} points, tree {row['tree']}, "
+              f"{row['cluster']} blocks per row (the flagship's widest row scan)", timing="queued",
     )
 
 
@@ -972,6 +1128,22 @@ def _k3_part(sass, r):
     return (r["n"], 9 * 32, sass["K3"])
 
 
+def scan_adds(n: int, tree: int) -> int:
+    """The adds of one row scan over n points: n - d in each round d = 1, 2,
+    4, ... < n, and msize - 1 in the halving tree."""
+    adds = sum(n - (1 << s) for s in range((n - 1).bit_length()))
+    return adds + ((1 << max(1, (n - 1).bit_length())) - 1 if tree else 0)
+
+
+def _scan_part(sass, r):
+    # per row: its adds at K3's SASS per add (the elementwise kernel's, load
+    # and store included); reads 3 coordinates per point, writes 3 per point
+    # (the scan) or per row (the tree)
+    adds = scan_adds(r["len"], r["tree"])
+    nbytes = 96 * r["len"] + 96 * (1 if r["tree"] else r["len"])
+    return (r["rows"], nbytes, {f: sass["K3"][f] * adds for f in ("fma", "alu", "issued", "int")})
+
+
 def _path_row(shapes, size: str):
     return max((r for r in shapes if r["kind"] == "path"), key=lambda r: r[size])
 
@@ -1004,6 +1176,8 @@ def phase_bounds(report, kernels):
         "K1": [(1 << 20, 96, sass["K1"])],
         "K2": [_k2_part(sass, _path_row(report["k2"]["shapes"], "m"))],
         "K3": [_k3_part(sass, _path_row(report["k3"]["shapes"], "n"))],
+        "K3-scan": [_scan_part(sass, max(report["k3_scan"]["shapes"],
+                                         key=lambda r: r["rows"] * r["len"]))],
         "K4": [_k4_part(sass, _path_row(report["k4"]["shapes"], "n"))],
         "P1": [(n_p1, 12, sass[f"P1/{b}"]) for b in bodies],
         "P2-lm": [(1 << P2_LOG_N, 96, sass["P2-lm"])],
@@ -1038,11 +1212,16 @@ def phase_bounds(report, kernels):
     # ms), summed over each kernel's path shapes (K1 at its parity shape)
     k1 = kernels["K1"]
     rank = {"K1": k1["launches_per_warm_prove"] * (k1["ms"] - k1["bound_ms"])}
-    for key, part, dims in (("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
-                            ("K3", _k3_part, lambda r: f"n={r['n']}"),
-                            ("K4", _k4_part, lambda r: f"n={r['n']} reps={r['reps']}")):
+    for key, part, dims in (
+            ("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
+            ("K3", _k3_part, lambda r: f"n={r['n']}"),
+            ("K3-scan", _scan_part, lambda r: (
+                f"rows={r['rows']} L={r['len']} tree={r['tree']}: "
+                f"{scan_adds(r['len'], r['tree'])} adds per row, {r['cluster']} blocks per row, "
+                f"{min(sms, r['rows'] * r['cluster'])} of {sms} SMs busy at most")),
+            ("K4", _k4_part, lambda r: f"n={r['n']} reps={r['reps']}")):
         rank[key] = 0.0
-        for r in report[key.lower()]["shapes"]:
+        for r in report[key.lower().replace("-", "_")]["shapes"]:
             n, nb, cnt = part(sass, r)
             mem = n * nb / HBM_BYTES_S * 1e3
             ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3

@@ -10,7 +10,11 @@ whole Renes–Costello–Batina formula (a = 0, b3 = 9) per thread:
   it in a ``fori_loop``; :func:`point_add_mixed` is one add (c = 1) through
   the same kernel. Complete when every P2 is a real affine point;
 * K3 :func:`point_add` — algorithm 7, complete projective add
-  (``_point_add_kernel``, ``csrc/g1.cu``);
+  (``_point_add_kernel``, ``csrc/g1.cu``), and the MSM's rounds of it in one
+  launch per row scan (``csrc/g1_rows.cu``): :func:`point_scan`, the
+  Hillis–Steele prefix scan of ``msm._hs_point_scan``, and
+  :func:`point_scan_sum`, that scan padded with the identity and halved to
+  one point as in ``msm._bucket_reduce``;
 * K4 :func:`point_double` — algorithm 9 (``_point_double_kernel``), applied
   ``reps`` times in one launch (``csrc/g1_double.cu``), as the JAX package's
   Horner combine applies it in a ``fori_loop``.
@@ -30,7 +34,13 @@ from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, mont_mul_
 from ..fields.field import BN254_FQ
 from ..fields.vecfield import add_u64 as add, sub_u64 as sub
 
-LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_double": 0}
+LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_scan": 0, "g1_double": 0}
+# the longest row of a point scan: one row per block of at most 512 threads
+# (or per cluster of blocks); the MSM's rows are its chunk totals (at most
+# 2^15 / 64 under msm._SEG) and its buckets (255)
+MAX_ROW = 512
+# blocks per row of a point scan (a thread block cluster when > 1)
+SCAN_CLUSTER = 1
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +106,63 @@ def point_scan_mixed_plain(fc, p1, pts_xy):
         return tuple(torch.stack(coord, dim=-2) for coord in zip(*prefixes))
 
     return _plain(scan, fc, p1, pts_xy)
+
+
+def _row_len(ps, key: str) -> int:
+    """L of rows (..., L, 8) of points; raises unless the three coordinates
+    share that shape and 1 <= L <= MAX_ROW."""
+    shape = ps[0].shape
+    if len(ps) != 3 or len(shape) < 2 or shape[-1] != LIMBS or any(t.shape != shape for t in ps):
+        raise ValueError(f"{key}: (X, Y, Z) of one shape (..., L, 8)")
+    if not 1 <= shape[-2] <= MAX_ROW:
+        raise ValueError(f"{key}: rows of 1 to {MAX_ROW} points, got {shape[-2]}")
+    return shape[-2]
+
+
+def _hs_scan_u64(fc, acc):
+    """Inclusive Hillis–Steele scan along axis -2: in round d = 1, 2, 4, ...
+    element i >= d becomes acc[i] + acc[i - d]."""
+    n = acc[0].shape[-2]
+    d = 1
+    while d < n:
+        added = _point_add_u64(fc, tuple(c[..., d:, :] for c in acc),
+                               tuple(c[..., : n - d, :] for c in acc))
+        acc = tuple(torch.cat([c[..., :d, :], a], dim=-2) for c, a in zip(acc, added))
+        d <<= 1
+    return acc
+
+
+def _tree_u64(fc, acc):
+    """Pad axis -2 with the identity to msize = the next power of two >= 2,
+    then halve it: acc[i] + acc[i + half] for i < half, down to element 0."""
+    n = acc[0].shape[-2]
+    msize = 1 << max(1, (n - 1).bit_length())
+    if msize > n:
+        shape = acc[0].shape[:-2] + (msize - n, LIMBS)
+        zero = torch.zeros(shape, dtype=torch.int64, device=acc[0].device)
+        one = u64(fc.tensor("r_limbs", zero.device)).expand(shape)
+        acc = tuple(torch.cat([c, i], dim=-2) for c, i in zip(acc, (zero, one, zero)))
+    width = msize
+    while width > 1:
+        half = width // 2
+        acc = _point_add_u64(fc, tuple(c[..., :half, :] for c in acc),
+                             tuple(c[..., half:width, :] for c in acc))
+        width = half
+    return tuple(c[..., 0, :] for c in acc)
+
+
+def point_scan_plain(fc, ps):
+    """The row scan's plain version: the rounds of :func:`point_add_plain`
+    that ``msm._hs_point_scan`` made."""
+    _row_len(ps, "point_scan")
+    return _plain(_hs_scan_u64, fc, ps)
+
+
+def point_scan_sum_plain(fc, ps):
+    """The plain version of the scan with its halving tree, as
+    ``msm._bucket_reduce`` made it: (..., L, 8) -> (..., 8)."""
+    _row_len(ps, "point_scan_sum")
+    return _plain(lambda fc, p: _tree_u64(fc, _hs_scan_u64(fc, p)), fc, ps)
 
 
 def _check_reps(reps: int) -> None:
@@ -214,6 +281,53 @@ def point_add(fc, p1, p2):
     check_kernel_args(*ins)
     _check_aligned(ins, "K3")
     return _launch("g1_add", "h2r_g1_add", ins, _empty3(ins[0]), ins[0].numel() // LIMBS)
+
+
+def scan_cluster(n: int, tree: bool) -> int:
+    """The blocks per row of a scan over rows of n points: SCAN_CLUSTER,
+    halved until each block holds at least a warp of the rows' (or, with
+    the tree, of its power of two's) elements."""
+    span = 1 << max(1, (n - 1).bit_length()) if tree else n
+    cluster = SCAN_CLUSTER
+    while cluster > 1 and span < 32 * cluster:
+        cluster //= 2
+    return cluster
+
+
+def _scan_rows(fc, ps, tree: bool, cluster: int | None = None):
+    """One launch of the row scan (with its halving tree if ``tree``), each
+    row on ``cluster`` blocks (default :func:`scan_cluster`)."""
+    n = _row_len(ps, "point_scan_sum" if tree else "point_scan")
+    _check_fq(fc, "K3")
+    ins = tuple(ps)
+    check_kernel_args(*ins)
+    _check_aligned(ins, "K3")
+    if cluster is None:
+        cluster = scan_cluster(n, tree)
+    lead = ins[0].shape[:-2]
+    outs = tuple(torch.empty(lead + ((LIMBS,) if tree else (n, LIMBS)), dtype=torch.int32,
+                             device=ins[0].device) for _ in range(3))
+    rows = ins[0].numel() // (n * LIMBS)
+    return _launch("g1_scan", "h2r_g1_scan_rows", ins, outs, rows, n, int(tree), cluster)
+
+
+def point_scan(fc, ps):
+    """K3's inclusive Hillis–Steele scan along axis -2 of rows (..., L, 8),
+    L <= 512, in one launch: out[..., i, :] = ps[..., 0, :] + ... + ps[...,
+    i, :], associated as ``msm._hs_point_scan`` associates it. The kernel is
+    built for BN254 Fq, so any other field raises."""
+    if ps[0].device.type == "cpu":
+        return point_scan_plain(fc, ps)
+    return _scan_rows(fc, ps, False)
+
+
+def point_scan_sum(fc, ps):
+    """:func:`point_scan`, padded with the identity to the next power of two
+    (at least 2) and halved to one point per row, as ``msm._bucket_reduce``
+    does: (..., L, 8) -> (..., 8), in one launch."""
+    if ps[0].device.type == "cpu":
+        return point_scan_sum_plain(fc, ps)
+    return _scan_rows(fc, ps, True)
 
 
 def _scan_mixed(fc, p1, pts_xy):

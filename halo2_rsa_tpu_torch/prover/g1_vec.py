@@ -4,7 +4,9 @@ Counterpart of ``halo2_rsa_tpu/prover/g1_vec.py``. Points are homogeneous
 projective (X, Y, Z) tuples of ``(..., 8)`` int32 Montgomery Fq tensors;
 infinity is (0, 1, 0). The three point formulas go to K2-K4
 (:mod:`.cuda_g1`) after broadcasting their coordinates to one shape; the
-bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`).
+bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`),
+and the MSM's Hillis–Steele scans of K3 adds one launch per scan
+(:func:`point_scan`, :func:`point_scan_sum`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,19 @@ def point_scan_mixed(p1, pts_xy):
     adds per row)."""
     return cuda_g1.point_scan_mixed(
         FQ, tuple(c.contiguous() for c in p1), tuple(c.contiguous() for c in pts_xy))
+
+
+def point_scan(ps):
+    """Inclusive prefix sums along axis -2 of rows (..., L, 8), L <= 512,
+    by Hillis–Steele rounds of complete adds: one K3 scan launch."""
+    return cuda_g1.point_scan(FQ, tuple(c.contiguous() for c in ps))
+
+
+def point_scan_sum(ps):
+    """The sum of each row (..., L, 8) -> (..., 8), L <= 512: its
+    Hillis–Steele scan, padded with the identity to a power of two, then a
+    halving tree, every add complete. One K3 scan launch."""
+    return cuda_g1.point_scan_sum(FQ, tuple(c.contiguous() for c in ps))
 
 
 def point_double(p, reps: int = 1):

@@ -9,12 +9,13 @@ coordinates:
   3. a chunked inclusive prefix scan of the sorted points: a C-step
      sequential scan across all chunks at once (one K2 launch of C mixed
      adds per thread when the base points are affine, else C K3 launches),
-     a log-depth scan over the chunk totals (K3), and the chunk offsets
-     spliced in only at the bucket boundaries;
+     a log-depth Hillis–Steele scan over the chunk totals (one K3 scan
+     launch), and the chunk offsets spliced in only at the bucket
+     boundaries;
   4. bucket sums by prefix-sum differencing at ``searchsorted`` boundaries;
-  5. sum_b b * P_b via suffix sums and a halving tree (K3), then a Horner
-     combine over windows (per window one K4 launch of ``window_bits``
-     doublings, then a K3 add).
+  5. sum_b b * P_b via suffix sums and a halving tree (one K3 scan launch),
+     then a Horner combine over windows (per window one K4 launch of
+     ``window_bits`` doublings, then a K3 add).
 
 ``fori_loop``/``scan`` bodies are Python loops over torch ops.
 """
@@ -32,7 +33,9 @@ from .g1_vec import (
     point_add,
     point_double,
     point_neg,
+    point_scan,
     point_scan_mixed,
+    point_scan_sum,
     point_select,
 )
 
@@ -57,22 +60,6 @@ def _pick_chunk(n: int) -> int:
     """Sequential chunk length C ~ sqrt(N), capped at 64."""
     c = 1 << max(2, (max(n, 2) - 1).bit_length() // 2)
     return min(c, 64)
-
-
-def _hs_point_scan(ps, axis_len: int):
-    """Inclusive EC prefix scan along axis -2 of (..., L, 8) coordinate
-    tuples: log2(L) rounds of one full-width point add."""
-    if axis_len <= 1:
-        return ps
-    dev = ps[0].device
-    iota = torch.arange(axis_len, device=dev)
-    acc = ps
-    for s in range((axis_len - 1).bit_length()):
-        d = 1 << s
-        src = (iota - d).clamp(min=0)
-        shifted = tuple(c.index_select(-2, src) for c in acc)
-        acc = point_select(iota >= d, point_add(acc, shifted), acc)
-    return acc
 
 
 def _gather_rows(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -122,8 +109,8 @@ def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = F
     acc = tuple(c[:, :, -1] for c in within)
     del p3, ps
 
-    # 2) exclusive scan of the chunk totals
-    incl = _hs_point_scan(acc, n_chunks)
+    # 2) exclusive scan of the chunk totals (n_chunks <= 512: npow <= _SEG)
+    incl = point_scan(acc)
     excl = tuple(
         torch.cat([i1, c[:, :-1]], dim=1) for c, i1 in zip(incl, identity((w, 1), device=dev))
     )
@@ -150,23 +137,7 @@ def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = F
 def _bucket_reduce(buckets):
     """(W, B, 8) coordinates -> per-window sums  sum_b b * bucket_b:
     suffix sums over b >= 1, then a halving tree over them."""
-    w, bcount = buckets[0].shape[:2]
-    dev = buckets[0].device
-    rev = tuple(c[:, 1:].flip(1) for c in buckets)  # bucket B-1 first
-    m = bcount - 1
-    acc = _hs_point_scan(rev, m)
-    msize = 1 << max(1, (m - 1).bit_length())
-    if msize > m:
-        acc = tuple(
-            torch.cat([c, ic], dim=1)
-            for c, ic in zip(acc, identity((w, msize - m), device=dev))
-        )
-    width = msize
-    while width > 1:
-        half = width // 2
-        acc = point_add(tuple(c[:, :half] for c in acc), tuple(c[:, half:width] for c in acc))
-        width = half
-    return tuple(c[:, 0] for c in acc)
+    return point_scan_sum(tuple(c[:, 1:].flip(1) for c in buckets))  # bucket B-1 first
 
 
 def _window_combine(window_sums, window_bits: int):

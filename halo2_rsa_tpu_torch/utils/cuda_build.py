@@ -41,6 +41,7 @@ _P32 = ctypes.POINTER(ctypes.c_uint32)
 SIGNATURES = {
     "h2r_mont_mul": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
     "h2r_g1_add": [_VP] * 9 + [_LL, _VP],
+    "h2r_g1_scan_rows": [_VP] * 6 + [_LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     "h2r_g1_scan_mixed": [_VP] * 8 + [_LL, ctypes.c_int, _VP],
     "h2r_g1_double": [_VP] * 6 + [_LL, ctypes.c_int, _VP],
     "h2r_int_ops": [ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _LL, _VP],

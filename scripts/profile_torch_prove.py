@@ -97,10 +97,11 @@ def main() -> int:
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
-    ours = {key: [0.0, 0] for key in ("h2r_mont_mul", "h2r_g1_scan_mixed", "h2r_g1_add", "h2r_g1_double")}
+    ours = {key: [0.0, 0] for key in ("h2r_mont_mul", "h2r_g1_scan_mixed", "h2r_g1_add",
+                                      "h2r_g1_scan_rows", "h2r_g1_double")}
     for name, us, cnt in rows:
         for key in ours:
-            if name.startswith(key + "_kernel"):
+            if key + "_kernel" in name:  # a template kernel demangles as "void name<...>(...)"
                 ours[key][0] += us
                 ours[key][1] += cnt
     out_dir = os.path.join(ROOT, "chiprun_out")

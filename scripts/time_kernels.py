@@ -17,7 +17,10 @@ with a sync). Every prefix and MSM result is hashed, and each hash must
 equal that of every earlier line of the same kernel and shape in
 ``chiprun_out/time_kernels.jsonl``: the checkouts compared agree bit for
 bit. ``k3`` runs ``chip_smoke.k3_times`` at K3's recorded shapes and 2^16
-points, then the same ``msm_many`` timings. ``k4`` runs
+points, ``chip_smoke.k3_scan_times`` at the recorded shapes of its row scans
+(``msm._bucket_reduce`` for a scan with its halving tree; a checkout without
+``point_scan`` runs its scans round by round), then the same ``msm_many``
+timings. ``k4`` runs
 ``chip_smoke.k4_times``. One JSON line goes to stdout and is appended to
 that file.
 """
@@ -102,6 +105,30 @@ def k3_rows(smoke, recorded) -> list:
                           smoke.k4_points())
 
 
+def k3_scan_rows(smoke, recorded) -> list:
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import g1_vec, msm
+
+    shapes = [(r["kind"], r["rows"], r["len"], r["tree"]) for r in recorded["k3_scan"]["shapes"]]
+    if hasattr(g1_vec, "point_scan"):
+        scan = g1_vec.point_scan
+    else:  # a checkout from before the scan kernel: one K3 launch per round
+        def scan(s):
+            return msm._hs_point_scan(s, s[0].shape[-2])
+
+    def make(s, tree):
+        if not tree:
+            return lambda: scan(s)
+        # _bucket_reduce scans buckets b >= 1 from the last: the row reversed
+        # behind a bucket 0 it skips
+        buckets = tuple(torch.cat([c[:, :1], c.flip(1)], dim=1) for c in s)
+        return lambda: msm._bucket_reduce(buckets)
+
+    rows = smoke.k3_scan_inputs(max(m for _, m, _, _ in shapes), max(n for _, _, n, _ in shapes))
+    return smoke.k3_scan_times(make, shapes, rows)
+
+
 def k4_rows(smoke, recorded) -> list:
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
@@ -129,7 +156,8 @@ def _mismatches(kernel: str, rows: list) -> list:
 
 
 def _key(r) -> str:
-    return " ".join(f"{k}={r[k]}" for k in ("kind", "m", "c", "p", "n") if k in r)
+    return " ".join(f"{k}={r[k]}" for k in ("kind", "m", "c", "p", "n", "rows", "len", "tree")
+                    if k in r)
 
 
 def main() -> int:
@@ -153,7 +181,8 @@ def main() -> int:
         rows, one_launch = k2_rows(chip_smoke, recorded)
         rows += msm_rows(chip_smoke)
     elif args.kernel == "k3":
-        rows = k3_rows(chip_smoke, recorded) + msm_rows(chip_smoke)
+        rows = (k3_rows(chip_smoke, recorded) + k3_scan_rows(chip_smoke, recorded)
+                + msm_rows(chip_smoke))
     else:
         rows = k4_rows(chip_smoke, recorded)
     bad = _mismatches(args.kernel, rows)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K4, P1 and P2 against their plain torch
-versions.
+"""The hand-written CUDA kernels K1-K4 (K3 also as the MSM's row scans), P1
+and P2 against their plain torch versions.
 
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
@@ -161,6 +161,59 @@ def test_k3_wrapper_rejects_other_fields_and_misaligned_tensors(cuda):
     with pytest.raises(ValueError):
         cuda_g1.point_add(g1_vec.FQ, off, pts)  # 4 bytes past a 16-byte boundary
     assert cuda_g1.LAUNCHES["g1_add"] == before
+
+
+def _scan_rows_input(base, length):
+    """(3, length) points drawn from ``base`` (lane 1 the identity): row 0
+    as drawn, row 1 one point repeated (P+P in round 0), row 2 pairs (P, -P)
+    (P+(-P) in round 0)."""
+    ps = tuple(c.repeat(-(-3 * length // c.shape[0]), 1)[: 3 * length].reshape(3, length, 8)
+               .contiguous() for c in base)
+    odd = length // 2
+    for c in ps:
+        c[1] = c[1, 0].clone()
+        c[2, 1::2] = c[2, 0::2][:odd].clone()
+    ps[1][2, 1::2] = vecfield.sub(g1_vec.FQ, torch.zeros_like(ps[1][2, 1::2]), ps[1][2, 1::2])
+    return ps
+
+
+@pytest.mark.cuda
+def test_k3_scan_kernel_matches_plain(cuda):
+    fq = g1_vec.FQ
+    base = _points(600, cuda)
+    for length in (1, 2, 5, 8, 255, 256, 511, 512):
+        ps = _scan_rows_input(base, length)
+        want = {False: cuda_g1.point_scan_plain(fq, ps), True: cuda_g1.point_scan_sum_plain(fq, ps)}
+        for tree, wrapper in ((False, cuda_g1.point_scan), (True, cuda_g1.point_scan_sum)):
+            for cluster in (None, 1, 2, 4, 8):
+                before = cuda_g1.LAUNCHES["g1_scan"]
+                got = (wrapper(fq, ps) if cluster is None
+                       else cuda_g1._scan_rows(fq, ps, tree, cluster))
+                assert cuda_g1.LAUNCHES["g1_scan"] == before + 1
+                for g, w in zip(got, want[tree]):
+                    assert torch.equal(g, w), (length, tree, cluster)
+
+
+@pytest.mark.cuda
+def test_k3_scan_wrappers_reject_long_rows_other_fields_and_bad_tensors(cuda):
+    fq = g1_vec.FQ
+    ps = g1_vec.identity((2, 6), device=cuda)
+    off = tuple(torch.zeros(2 * 6 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(2, 6, 8)
+                for _ in range(3))
+    bad = [
+        (fq, g1_vec.identity((1, cuda_g1.MAX_ROW + 1), device=cuda)),
+        (fq, tuple(c[0, 0] for c in ps)),  # no row axis
+        (fq, (ps[0], ps[1][:, :3], ps[2])),  # coordinates of other shapes
+        (fq, off),  # 4 bytes past a 16-byte boundary
+    ] + [(vecfield.consts(f), ps) for f in ALL_FIELDS if f.p != fq.field.p]
+    before = cuda_g1.LAUNCHES["g1_scan"]
+    for args in bad:
+        for fn in (cuda_g1.point_scan, cuda_g1.point_scan_sum):
+            with pytest.raises(ValueError):
+                fn(*args)
+    with pytest.raises(RuntimeError):  # the C entry refuses a cluster of 3
+        cuda_g1._scan_rows(fq, ps, False, 3)
+    assert cuda_g1.LAUNCHES["g1_scan"] == before
 
 
 def _fq_lazy_constants() -> dict:
