@@ -10,8 +10,10 @@ the script exits non-zero without its final line):
 3. kernel parity on the card: each kernel against its plain torch version
    (K1 at 2^20 products over four fields, K2-K4 at 2^16 points with the
    identity, P+P and P+(-P), K3 also on coordinates lifted by q, as its lazy
-   core may hold them), all compared bitwise; K1 timed there (K2's, K3's and
-   K4's times are phase 6's);
+   core may hold them; K3's row scans at (128, 512) and (128, 255) with the
+   halving tree, with 1, 2, 4 and 8 blocks per row; K3's bucket splice at
+   128 rows x 256 buckets over 2^15 points), all compared bitwise; K1 timed
+   there (K2's, K3's and K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
@@ -20,7 +22,8 @@ the script exits non-zero without its final line):
    warm prove (``chip_smoke.json``: ``g1_calls_per_warm_prove``); then K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
-   2^16 points with C = 1, K3 at its shapes and at 2^16 points, and K4 at
+   2^16 points with C = 1, K3 at its shapes and at 2^16 points, its row
+   scans (with every cluster size) and bucket splice at theirs, and K4 at
    its shapes (one launch of 8 doublings
    per Horner window, over the P points of one ``msm_many`` call) and at
    2^16 points with 1 and 8 doublings, each bitwise against its plain
@@ -144,6 +147,7 @@ SASS_NAMES = {
     "K3": ("h2r_g1_add_kernel", ()),
     "K3-scan": ("h2r_g1_scan_rows_kernel", (0,)),  # one block per row
     "K3-scan/cluster": ("h2r_g1_scan_rows_kernel", (1,)),  # a cluster of blocks per row
+    "K3-splice": ("h2r_g1_bucket_splice_kernel", ()),
     "K4": ("h2r_g1_double_kernel", ()),
     "P2-lm": ("h2r_mont_mul_lm_kernel", ()),
     "P2-staged": ("h2r_mont_mul_staged_kernel", (P2_THREADS,)),
@@ -162,14 +166,15 @@ def phase_build(report):
     dt = time.perf_counter() - t0
     usage = ptxas_usage(log.getvalue())
     report["build"] = dict(seconds=dt, library=os.path.relpath(path, HERE), ptxas=usage)
-    line(f"[2 build] K1-K4 (K3 with its row scans), P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
+    line(f"[2 build] K1-K4 (K3 with its row scans and bucket splice), P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
     k4_use = [u for sym, u in usage.items() if "h2r_g1_double_kernel" in sym]
     spilled = [sym for sym, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")]
     k2_use = [u for sym, u in usage.items() if "h2r_g1_scan_mixed_kernel" in sym]
     k3_use = [u for sym, u in usage.items() if "h2r_g1_add_kernel" in sym]
     scan_use = [u for sym, u in usage.items() if "h2r_g1_scan_rows_kernel" in sym]
-    line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K3-scan {scan_use}, K4 {k4_use} | "
-         f"kernels that spill: {spilled or 'none'}")
+    splice_use = [u for sym, u in usage.items() if "h2r_g1_bucket_splice_kernel" in sym]
+    line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K3-scan {scan_use}, K3-splice "
+         f"{splice_use}, K4 {k4_use} | kernels that spill: {spilled or 'none'}")
     listing = cuda_build.sass_listing(path)
     sass = {sym: collections.Counter(op for _, op, _ in insns) for sym, insns in listing.items()}
     names = dict(SASS_NAMES)
@@ -444,10 +449,55 @@ def _parity_scan(report, kernels):
          f"bitwise equal (identity rows, P+P, P-P) with {K3_SCAN_CLUSTERS} blocks per row")
 
 
+SPLICE_SHAPE = (128, 256, 1 << 15, 512)  # rows, buckets, npad, nchunks: the flagship's widest
+
+
+def k3_splice_inputs(rows: int, buckets: int, npad: int, nchunks: int):
+    """The bucket splice's inputs on the card, as ``msm._bucket_sums`` makes
+    them: within (rows, npad) and incl (rows, nchunks) projective points
+    drawn from ``k4_points``, and the ends of each bucket from sorted random
+    digits. Row 0 leaves buckets 0-6 empty (their ends are -1), row 1 puts
+    every point in one bucket. A shape of rows' rows takes the first."""
+    import torch
+
+    pool = k4_points()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    idx = torch.randint(0, K4_BIG, (rows, npad + nchunks), device="cuda", generator=gen)
+    within = tuple(c[idx[:, :npad]] for c in pool)
+    incl = tuple(c[idx[:, npad:]] for c in pool)
+    digits = torch.randint(0, buckets, (rows, npad), device="cuda", generator=gen)
+    digits[0] = digits[0].clamp(min=7)
+    digits[1] = buckets // 2
+    ds, _ = digits.sort(dim=1)
+    targets = torch.arange(buckets, device="cuda").expand(rows, buckets).contiguous()
+    return within, incl, torch.searchsorted(ds, targets, right=True) - 1
+
+
+def _parity_splice(report, kernels):
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+
+    within, incl, ends = k3_splice_inputs(*SPLICE_SHAPE)
+    got = cuda_g1.bucket_splice(g1_vec.FQ, within, incl, ends)
+    want = cuda_g1.bucket_splice_plain(g1_vec.FQ, within, incl, ends)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K3-splice differs from its plain version: {err}")
+    kernels["K3-splice"] = dict(
+        name="bucket_splice", route="cuda", source="halo2_rsa_tpu_torch/csrc/g1_splice.cu",
+        replaces="halo2_rsa_tpu/prover/pallas_g1.py:43", max_abs_err=err,
+    )
+    line("[3 parity] K3-splice bucket_splice: 128 rows x 256 buckets over 2^15 points in 512 "
+         "chunks bitwise equal (empty buckets, one full bucket)")
+
+
 def phase_parity(report, kernels):
     _parity_k1(report, kernels)
     _parity_g1(report, kernels)
     _parity_scan(report, kernels)
+    _parity_splice(report, kernels)
 
 
 def phase_golden(report):
@@ -529,6 +579,7 @@ def phase_flagship(report, kernels):
             "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
             "K3": cuda_g1.LAUNCHES["g1_add"],
             "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
+            "K3-splice": cuda_g1.LAUNCHES["g1_splice"],
             "K4": cuda_g1.LAUNCHES["g1_double"],
         }
 
@@ -584,11 +635,12 @@ def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
     """{kernel: [[shape..., launches], ...]} over one more warm prove, read
     by pass-through wrappers around the K2-K4 wrappers (launch counts are
     already taken): K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the
-    tree else 0), K4 (points, doublings). Each kernel's launches must add up
-    to its count over a warm prove."""
+    tree else 0), K3-splice (rows, buckets, npad, nchunks), K4 (points,
+    doublings). Each kernel's launches must add up to its count over a warm
+    prove."""
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
-    calls = {key: collections.Counter() for key in ("K2", "K3", "K3-scan", "K4")}
+    calls = {key: collections.Counter() for key in ("K2", "K3", "K3-scan", "K3-splice", "K4")}
 
     def points(t):
         return t.numel() // t.shape[-1]
@@ -602,6 +654,8 @@ def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
         "point_add": ("K3", lambda fc, p1, p2: (points(p1[0]),)),
         "point_scan": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 0)),
         "point_scan_sum": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 1)),
+        "bucket_splice": ("K3-splice", lambda fc, within, incl, ends: (
+            ends.shape[0], ends.shape[1], within[0].shape[1], incl[0].shape[1])),
         "point_double": ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
     }
     real = {name: getattr(cuda_g1, name) for name in shape_of}
@@ -769,6 +823,47 @@ def k3_scan_times(make, shapes, rows, plain=None) -> list:
     return out
 
 
+def k3_splice_times(make, shapes, inputs, plain=None) -> list:
+    """The bucket splice at each (kind, rows, buckets, npad, nchunks) of
+    ``shapes``, on the first rows of ``inputs`` (``k3_splice_inputs``).
+    ``make(within, incl, ends)`` returns a call that computes it: one splice
+    launch, or, for a checkout without ``bucket_splice``, the gathers, adds
+    and selects of its ``msm._bucket_sums``. Hashed (``digest``) and, given
+    ``plain``, held bitwise against it (``plain_ms`` that run's); then ms per
+    call on the card alone (``queued_ms``) and paced by the host
+    (``chain_ms``). ``scripts/time_kernels.py`` runs it on another
+    checkout's wrappers."""
+    import torch
+
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    out = []
+    for kind, m, b, npad, nchunks in shapes:
+        within, incl = (tuple(c[:m] for c in part) for part in inputs[:2])
+        ends = inputs[2][:m]
+        if (ends.shape[1], within[0].shape[1], incl[0].shape[1]) != (b, npad, nchunks):
+            raise ValueError(f"K3-splice inputs do not hold the shape {(m, b, npad, nchunks)}")
+        call = make(within, incl, ends)
+        got = call()
+        res = dict(kind=kind, rows=m, buckets=b, npad=npad, nchunks=nchunks, digest=_digest(got))
+        if plain is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(within, incl, ends)
+            torch.cuda.synchronize()
+            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            res["max_abs_err"] = _max_abs_err(got, want)
+            if res["max_abs_err"]:
+                raise AssertionError(f"K3-splice at {m} rows x {b} buckets differs from its "
+                                     "plain version")
+        del got
+        step = lambda q: (call(), q)[1]  # noqa: E731
+        res.update(ms=queued_ms(step, ends, K3_SCAN_ITERS),
+                   host_paced_ms=chain_ms(step, ends, K3_SCAN_ITERS))
+        out.append(res)
+    return out
+
+
 def _empty_launch(report):
     """An empty launch (a zero-cycle spin) timed on the card alone and paced
     by the host."""
@@ -899,9 +994,17 @@ def phase_k2(report, kernels):
     )
 
 
+def _row_fields(kernel, row) -> dict:
+    """A kernels-line row's times from one shape's timing."""
+    return dict(ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
+                max_abs_err=max(kernel["max_abs_err"], row["max_abs_err"]), timing="queued")
+
+
 def phase_k3(report, kernels):
     """K3 at the path's shapes and at 2^16 points (``k3_times``), and its
     row scans at theirs (``k3_scan_times``)."""
+    import torch
+
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
     fq = g1_vec.FQ
@@ -926,6 +1029,7 @@ def phase_k3(report, kernels):
 
     # the row scans at their recorded shapes, with the wrappers' cluster
     # choice, then with every cluster size
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     hist = {(m, n, t): k for m, n, t, k in report["flagship"]["g1_calls_per_warm_prove"]["K3-scan"]}
     shapes = [("path", m, n, t) for m, n, t in sorted(hist, reverse=True)]
     rows = k3_scan_inputs(max(m for _, m, _, _ in shapes), max(n for _, _, n, _ in shapes))
@@ -935,7 +1039,7 @@ def phase_k3(report, kernels):
                         plain=lambda s, t: plain[t](fq, s))
     for r in out:
         r["launches_per_warm_prove"] = hist[r["rows"], r["len"], r["tree"]]
-        r["cluster"] = cuda_g1.scan_cluster(r["len"], bool(r["tree"]))
+        r["cluster"] = cuda_g1.scan_cluster(r["rows"], r["len"], bool(r["tree"]), sms)
         r["cluster_ms"] = {}
         for k in K3_SCAN_CLUSTERS:
             (t,) = k3_scan_times(
@@ -951,13 +1055,31 @@ def phase_k3(report, kernels):
              + ", ".join(f"{k} {ms:.4f}" for k, ms in r["cluster_ms"].items())
              + f" ms | {r['launches_per_warm_prove']} launches per warm prove")
     report["k3_scan"] = dict(shapes=out)
-    row = max(out, key=lambda r: r["rows"] * r["len"])
     kernels["K3-scan"].update(
-        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
-        max_abs_err=max([kernels["K3-scan"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
-        shape=f"{row['rows']} rows x {row['len']} points, tree {row['tree']}, "
-              f"{row['cluster']} blocks per row (the flagship's widest row scan)", timing="queued",
-    )
+        **_row_fields(kernels["K3-scan"], max(out, key=lambda r: r["rows"] * r["len"])),
+        shape="{rows} rows x {len} points, tree {tree}, {cluster} blocks per row (the "
+              "flagship's widest row scan)".format(**max(out, key=lambda r: r["rows"] * r["len"])))
+
+    # the bucket splice at its recorded shapes
+    recorded = report["flagship"]["g1_calls_per_warm_prove"]["K3-splice"]
+    hist = {tuple(k[:4]): k[4] for k in recorded}
+    shapes = [("path", *k) for k in sorted(hist, reverse=True)]
+    rows, b, npad, nchunks = shapes[0][1:]
+    out = k3_splice_times(lambda w, i, e: lambda: cuda_g1.bucket_splice(fq, w, i, e), shapes,
+                          k3_splice_inputs(rows, b, npad, nchunks),
+                          plain=lambda w, i, e: cuda_g1.bucket_splice_plain(fq, w, i, e))
+    for r in out:
+        r["launches_per_warm_prove"] = hist[r["rows"], r["buckets"], r["npad"], r["nchunks"]]
+        line(f"[6 K3-splice] path rows={r['rows']} buckets={r['buckets']} npad={r['npad']} "
+             f"nchunks={r['nchunks']}: bitwise equal | card {r['ms']:.4f} ms, host-paced "
+             f"{r['host_paced_ms']:.4f} ms, plain {r['plain_ms']:.1f} ms | "
+             f"{r['launches_per_warm_prove']} launches per warm prove")
+    report["k3_splice"] = dict(shapes=out)
+    row = max(out, key=lambda r: r["rows"] * r["buckets"])
+    kernels["K3-splice"].update(
+        **_row_fields(kernels["K3-splice"], row),
+        shape="{rows} rows x {buckets} buckets over {npad} points in {nchunks} chunks (the "
+              "flagship's widest splice)".format(**row))
 
 
 def phase_k4(report, kernels):
@@ -1128,6 +1250,12 @@ def _k3_part(sass, r):
     return (r["n"], 9 * 32, sass["K3"])
 
 
+def _splice_part(sass, r):
+    # per (row, bucket) thread: the whole kernel (three adds); reads at most
+    # 4 points and one end, writes 1 point
+    return (r["rows"] * r["buckets"], 4 * 96 + 8 + 96, sass["K3-splice"])
+
+
 def scan_adds(n: int, tree: int) -> int:
     """The adds of one row scan over n points: n - d in each round d = 1, 2,
     4, ... < n, and msize - 1 in the halving tree."""
@@ -1178,6 +1306,8 @@ def phase_bounds(report, kernels):
         "K3": [_k3_part(sass, _path_row(report["k3"]["shapes"], "n"))],
         "K3-scan": [_scan_part(sass, max(report["k3_scan"]["shapes"],
                                          key=lambda r: r["rows"] * r["len"]))],
+        "K3-splice": [_splice_part(sass, max(report["k3_splice"]["shapes"],
+                                             key=lambda r: r["rows"] * r["buckets"]))],
         "K4": [_k4_part(sass, _path_row(report["k4"]["shapes"], "n"))],
         "P1": [(n_p1, 12, sass[f"P1/{b}"]) for b in bodies],
         "P2-lm": [(1 << P2_LOG_N, 96, sass["P2-lm"])],
@@ -1202,7 +1332,9 @@ def phase_bounds(report, kernels):
              f"rate {p1_rate_ms:.4f}) = {k['bound_ms'] / k['ms'] * 100:.1f} % of bound")
     empty = report["empty_launch"]["ms"]
     line("[9 bounds] K3 SASS per add (the whole kernel: load, add, canonicalise, store): FMA "
-         "pipe {fma}, ALU pipe {alu}, issued {issued}".format(**sass["K3"]))
+         "pipe {fma}, ALU pipe {alu}, issued {issued}".format(**sass["K3"])
+         + "; K3-splice per bucket (three adds): FMA pipe {fma}, ALU pipe {alu}, issued "
+           "{issued}".format(**sass["K3-splice"]))
     for key, step in (("K2", "add"), ("K4", "doubling")):
         line(f"[9 bounds] {key} SASS per {step} (its loop body): FMA pipe {{fma}}, ALU pipe "
              "{alu}, issued {issued}".format(**sass[key]["body"])
@@ -1219,6 +1351,9 @@ def phase_bounds(report, kernels):
                 f"rows={r['rows']} L={r['len']} tree={r['tree']}: "
                 f"{scan_adds(r['len'], r['tree'])} adds per row, {r['cluster']} blocks per row, "
                 f"{min(sms, r['rows'] * r['cluster'])} of {sms} SMs busy at most")),
+            ("K3-splice", _splice_part, lambda r: (
+                f"rows={r['rows']} buckets={r['buckets']} npad={r['npad']} "
+                f"nchunks={r['nchunks']}")),
             ("K4", _k4_part, lambda r: f"n={r['n']} reps={r['reps']}")):
         rank[key] = 0.0
         for r in report[key.lower().replace("-", "_")]["shapes"]:

@@ -14,7 +14,9 @@ whole Renes–Costello–Batina formula (a = 0, b3 = 9) per thread:
   launch per row scan (``csrc/g1_rows.cu``): :func:`point_scan`, the
   Hillis–Steele prefix scan of ``msm._hs_point_scan``, and
   :func:`point_scan_sum`, that scan padded with the identity and halved to
-  one point as in ``msm._bucket_reduce``;
+  one point as in ``msm._bucket_reduce``; and :func:`bucket_splice`, the
+  three adds per bucket of ``msm._bucket_sums``'s boundary splice
+  (``csrc/g1_splice.cu``);
 * K4 :func:`point_double` — algorithm 9 (``_point_double_kernel``), applied
   ``reps`` times in one launch (``csrc/g1_double.cu``), as the JAX package's
   Horner combine applies it in a ``fori_loop``.
@@ -28,19 +30,20 @@ bit, because each step returns the canonical residue.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, mont_mul_u64, to_int32, u64
 from ..fields.field import BN254_FQ
 from ..fields.vecfield import add_u64 as add, sub_u64 as sub
 
-LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_scan": 0, "g1_double": 0}
+LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_scan": 0, "g1_splice": 0, "g1_double": 0}
 # the longest row of a point scan: one row per block of at most 512 threads
 # (or per cluster of blocks); the MSM's rows are its chunk totals (at most
 # 2^15 / 64 under msm._SEG) and its buckets (255)
 MAX_ROW = 512
-# blocks per row of a point scan (a thread block cluster when > 1)
-SCAN_CLUSTER = 1
+MAX_CLUSTER = 8  # blocks per row of a point scan: the portable cluster size
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +168,54 @@ def point_scan_sum_plain(fc, ps):
     return _plain(lambda fc, p: _tree_u64(fc, _hs_scan_u64(fc, p)), fc, ps)
 
 
+def _splice_shape(within, incl, ends) -> tuple:
+    """(rows, buckets, npad, nchunks) of a bucket splice; raises unless
+    within is (rows, npad, 8), incl (rows, nchunks, 8) and ends (rows,
+    buckets) int64, with npad a multiple of nchunks."""
+    w, i = within[0].shape, incl[0].shape
+    if len(within) != 3 or len(incl) != 3 or len(w) != 3 or len(i) != 3 or ends.dim() != 2 or \
+            any(t.shape != w for t in within) or any(t.shape != i for t in incl) or \
+            w[2] != LIMBS or i[2] != LIMBS or w[0] != i[0] or ends.shape[0] != w[0] or \
+            ends.dtype != torch.int64 or i[1] < 1 or w[1] % i[1]:
+        raise ValueError("bucket_splice: (X, Y, Z) of within (rows, npad, 8) and of incl "
+                         "(rows, nchunks, 8), npad a multiple of nchunks, ends (rows, buckets) "
+                         "int64")
+    return w[0], ends.shape[1], w[1], i[1]
+
+
+def bucket_splice_plain(fc, within, incl, ends):
+    """The splice's plain version, the torch code of ``msm._bucket_sums``:
+    P(i) = within[i] + excl[i // c] (excl[0] the identity, excl[k] =
+    incl[k - 1], c = npad // nchunks), the identity where i < 0, and bucket
+    b = P(ends[b]) + (-P(ends[b - 1])) with ends[-1] = -1."""
+    rows, _, npad, nchunks = _splice_shape(within, incl, ends)
+    c = npad // nchunks
+
+    def splice(fc, within, incl):
+        dev = ends.device
+        ident = (torch.zeros((rows, 1, LIMBS), dtype=torch.int64, device=dev),
+                 u64(fc.tensor("r_limbs", dev)).expand(rows, 1, LIMBS),
+                 torch.zeros((rows, 1, LIMBS), dtype=torch.int64, device=dev))
+        excl = tuple(torch.cat([i1, t[:, :-1]], dim=1) for t, i1 in zip(incl, ident))
+        prev = torch.cat([torch.full((rows, 1), -1, dtype=ends.dtype, device=dev), ends[:, :-1]],
+                         dim=1)
+
+        def gather(c_, idx):
+            return torch.gather(c_, 1, idx[..., None].expand(-1, -1, LIMBS))
+
+        def prefix(idx):
+            cl = idx.clamp(min=0)
+            pts = _point_add_u64(fc, tuple(gather(t, cl) for t in within),
+                                 tuple(gather(t, cl // c) for t in excl))
+            live = (idx >= 0)[..., None]
+            return tuple(torch.where(live, p, i1) for p, i1 in zip(pts, ident))
+
+        e, (px, py, pz) = prefix(ends), prefix(prev)
+        return _point_add_u64(fc, e, (px, sub(fc, torch.zeros_like(py), py), pz))
+
+    return _plain(splice, fc, within, incl)
+
+
 def _check_reps(reps: int) -> None:
     if reps < 1:
         raise ValueError(f"point_double: reps must be >= 1, got {reps}")
@@ -283,15 +334,22 @@ def point_add(fc, p1, p2):
     return _launch("g1_add", "h2r_g1_add", ins, _empty3(ins[0]), ins[0].numel() // LIMBS)
 
 
-def scan_cluster(n: int, tree: bool) -> int:
-    """The blocks per row of a scan over rows of n points: SCAN_CLUSTER,
-    halved until each block holds at least a warp of the rows' (or, with
-    the tree, of its power of two's) elements."""
+def scan_cluster(rows: int, n: int, tree: bool, sms: int) -> int:
+    """Blocks per row of a scan of ``rows`` rows of n points on a card of
+    ``sms`` SMs: the most, up to MAX_CLUSTER, that keep rows x blocks
+    within the SMs (a row's rounds are one block's, or one cluster's, work,
+    so few rows leave SMs idle), halved until each block holds at least a
+    warp of the row (or, with the tree, of its power of two)."""
     span = 1 << max(1, (n - 1).bit_length()) if tree else n
-    cluster = SCAN_CLUSTER
-    while cluster > 1 and span < 32 * cluster:
+    cluster = MAX_CLUSTER
+    while cluster > 1 and (rows * cluster > sms or span < 32 * cluster):
         cluster //= 2
     return cluster
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _scan_rows(fc, ps, tree: bool, cluster: int | None = None):
@@ -302,12 +360,12 @@ def _scan_rows(fc, ps, tree: bool, cluster: int | None = None):
     ins = tuple(ps)
     check_kernel_args(*ins)
     _check_aligned(ins, "K3")
+    rows = ins[0].numel() // (n * LIMBS)
     if cluster is None:
-        cluster = scan_cluster(n, tree)
+        cluster = scan_cluster(rows, n, tree, _sm_count(ins[0].device))
     lead = ins[0].shape[:-2]
     outs = tuple(torch.empty(lead + ((LIMBS,) if tree else (n, LIMBS)), dtype=torch.int32,
                              device=ins[0].device) for _ in range(3))
-    rows = ins[0].numel() // (n * LIMBS)
     return _launch("g1_scan", "h2r_g1_scan_rows", ins, outs, rows, n, int(tree), cluster)
 
 
@@ -328,6 +386,30 @@ def point_scan_sum(fc, ps):
     if ps[0].device.type == "cpu":
         return point_scan_sum_plain(fc, ps)
     return _scan_rows(fc, ps, True)
+
+
+def bucket_splice(fc, within, incl, ends):
+    """The MSM's bucket sums from its chunked prefix scan, in one launch:
+    within (rows, npad, 8) (the scan inside each chunk), incl (rows,
+    nchunks, 8) (the scan of the chunk totals), ends (rows, buckets) int64,
+    each in [-1, npad) (the last element of each bucket, -1 before the
+    first): bucket b = P(ends[b]) - P(ends[b - 1]) as in
+    :func:`bucket_splice_plain`, (rows, buckets, 8). The kernel is built for
+    BN254 Fq, so any other field raises."""
+    if within[0].device.type == "cpu":
+        return bucket_splice_plain(fc, within, incl, ends)
+    rows, buckets, npad, nchunks = _splice_shape(within, incl, ends)
+    _check_fq(fc, "K3")
+    ins = tuple(within) + tuple(incl)
+    check_kernel_args(*within)
+    check_kernel_args(*incl)
+    _check_aligned(ins, "K3")
+    if not ends.is_cuda or not ends.is_contiguous() or ends.device != ins[0].device:
+        raise ValueError("bucket_splice: ends must be contiguous on the points' device")
+    outs = tuple(torch.empty((rows, buckets, LIMBS), dtype=torch.int32, device=ends.device)
+                 for _ in range(3))
+    return _launch("g1_splice", "h2r_g1_bucket_splice", ins + (ends,), outs, rows, buckets,
+                   npad, nchunks, npad // nchunks)
 
 
 def _scan_mixed(fc, p1, pts_xy):

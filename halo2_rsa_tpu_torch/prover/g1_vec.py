@@ -5,8 +5,9 @@ projective (X, Y, Z) tuples of ``(..., 8)`` int32 Montgomery Fq tensors;
 infinity is (0, 1, 0). The three point formulas go to K2-K4
 (:mod:`.cuda_g1`) after broadcasting their coordinates to one shape; the
 bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`),
-and the MSM's Hillis–Steele scans of K3 adds one launch per scan
-(:func:`point_scan`, :func:`point_scan_sum`).
+the MSM's Hillis–Steele scans of K3 adds one launch per scan
+(:func:`point_scan`, :func:`point_scan_sum`), and its bucket-boundary
+splice one launch (:func:`bucket_splice`).
 """
 
 from __future__ import annotations
@@ -60,6 +61,14 @@ def point_scan_sum(ps):
     Hillis–Steele scan, padded with the identity to a power of two, then a
     halving tree, every add complete. One K3 scan launch."""
     return cuda_g1.point_scan_sum(FQ, tuple(c.contiguous() for c in ps))
+
+
+def bucket_splice(within, incl, ends):
+    """Bucket sums P(ends[b]) - P(ends[b - 1]) of rows with P(i) = within[i]
+    + (the exclusive scan of incl)[i // c]: one K3 splice launch (see
+    :func:`.cuda_g1.bucket_splice`)."""
+    return cuda_g1.bucket_splice(FQ, tuple(c.contiguous() for c in within),
+                                 tuple(c.contiguous() for c in incl), ends.contiguous())
 
 
 def point_double(p, reps: int = 1):

@@ -12,7 +12,8 @@ coordinates:
      a log-depth Hillis–Steele scan over the chunk totals (one K3 scan
      launch), and the chunk offsets spliced in only at the bucket
      boundaries;
-  4. bucket sums by prefix-sum differencing at ``searchsorted`` boundaries;
+  4. bucket sums by prefix-sum differencing at ``searchsorted`` boundaries
+     (one K3 splice launch for 3 and 4's splice and differences);
   5. sum_b b * P_b via suffix sums and a halving tree (one K3 scan launch),
      then a Horner combine over windows (per window one K4 launch of
      ``window_bits`` doublings, then a K3 add).
@@ -29,14 +30,13 @@ from ..fields.cuda_mont import LIMBS, u64
 from ..fields.field import BN254_FR
 from . import curve, g1_vec
 from .g1_vec import (
+    bucket_splice,
     identity,
     point_add,
     point_double,
-    point_neg,
     point_scan,
     point_scan_mixed,
     point_scan_sum,
-    point_select,
 )
 
 
@@ -60,11 +60,6 @@ def _pick_chunk(n: int) -> int:
     """Sequential chunk length C ~ sqrt(N), capped at 64."""
     c = 1 << max(2, (max(n, 2) - 1).bit_length() // 2)
     return min(c, 64)
-
-
-def _gather_rows(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """c (W, L, 8), idx (W, B) -> (W, B, 8) (take_along_axis on axis 1)."""
-    return torch.gather(c, 1, idx[..., None].expand(-1, -1, LIMBS))
 
 
 def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = False):
@@ -109,29 +104,16 @@ def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = F
     acc = tuple(c[:, :, -1] for c in within)
     del p3, ps
 
-    # 2) exclusive scan of the chunk totals (n_chunks <= 512: npow <= _SEG)
+    # 2) inclusive scan of the chunk totals (n_chunks <= 512: npow <= _SEG)
     incl = point_scan(acc)
-    excl = tuple(
-        torch.cat([i1, c[:, :-1]], dim=1) for c, i1 in zip(incl, identity((w, 1), device=dev))
-    )
     flat_within = tuple(c.reshape(w, npad, LIMBS) for c in within)
 
-    # 3+4) bucket_b = scan[end_b] - scan[end_{b-1}], the chunk offsets
-    # spliced in only at the boundaries read
+    # 3+4) bucket_b = scan[end_b] - scan[end_{b-1}], the chunk offsets (the
+    # exclusive scan of the chunk totals) spliced in only at the boundaries
+    # read: one K3 splice launch
     targets = torch.arange(num_buckets, dtype=ds.dtype, device=dev).expand(w, num_buckets)
     ends = torch.searchsorted(ds, targets.contiguous(), right=True) - 1  # -1: empty prefix
-    prev = torch.cat([torch.full((w, 1), -1, dtype=ends.dtype, device=dev), ends[:, :-1]], dim=1)
-
-    def gather_pts(idx):
-        cl = idx.clamp(min=0)
-        wpts = tuple(_gather_rows(c, cl) for c in flat_within)
-        opts = tuple(_gather_rows(c, cl // c_len) for c in excl)
-        pts = point_add(wpts, opts)
-        return point_select(idx >= 0, pts, identity((w, num_buckets), device=dev))
-
-    e_pts = gather_pts(ends)
-    p_pts = gather_pts(prev)
-    return point_add(e_pts, point_neg(p_pts))
+    return bucket_splice(flat_within, incl, ends)
 
 
 def _bucket_reduce(buckets):

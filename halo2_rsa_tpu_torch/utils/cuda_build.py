@@ -42,6 +42,7 @@ SIGNATURES = {
     "h2r_mont_mul": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
     "h2r_g1_add": [_VP] * 9 + [_LL, _VP],
     "h2r_g1_scan_rows": [_VP] * 6 + [_LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    "h2r_g1_bucket_splice": [_VP] * 10 + [_LL, ctypes.c_int, _LL, _LL, ctypes.c_int, _VP],
     "h2r_g1_scan_mixed": [_VP] * 8 + [_LL, ctypes.c_int, _VP],
     "h2r_g1_double": [_VP] * 6 + [_LL, ctypes.c_int, _VP],
     "h2r_int_ops": [ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _LL, _VP],

@@ -19,7 +19,9 @@ equal that of every earlier line of the same kernel and shape in
 bit. ``k3`` runs ``chip_smoke.k3_times`` at K3's recorded shapes and 2^16
 points, ``chip_smoke.k3_scan_times`` at the recorded shapes of its row scans
 (``msm._bucket_reduce`` for a scan with its halving tree; a checkout without
-``point_scan`` runs its scans round by round), then the same ``msm_many``
+``point_scan`` runs its scans round by round) and ``chip_smoke.k3_splice_times``
+at the bucket splice's (a checkout without ``bucket_splice`` runs the gathers,
+adds and selects of its ``msm._bucket_sums``), then the same ``msm_many``
 timings. ``k4`` runs
 ``chip_smoke.k4_times``. One JSON line goes to stdout and is appended to
 that file.
@@ -129,6 +131,43 @@ def k3_scan_rows(smoke, recorded) -> list:
     return smoke.k3_scan_times(make, shapes, rows)
 
 
+def _splice_by_gathers(g1_vec, within, incl, ends):
+    """The bucket splice as ``msm._bucket_sums`` made it before the splice
+    kernel: two gathers of prefixes, their adds and selects, a negation and
+    the difference, on the checkout's ``g1_vec``."""
+    import torch
+
+    w, b = ends.shape
+    dev = ends.device
+    c = within[0].shape[1] // incl[0].shape[1]
+    excl = tuple(torch.cat([i1, t[:, :-1]], dim=1)
+                 for t, i1 in zip(incl, g1_vec.identity((w, 1), device=dev)))
+    prev = torch.cat([torch.full((w, 1), -1, dtype=ends.dtype, device=dev), ends[:, :-1]], dim=1)
+
+    def gather_pts(idx):
+        cl = idx.clamp(min=0)
+        wpts = tuple(torch.gather(t, 1, cl[..., None].expand(-1, -1, 8)) for t in within)
+        opts = tuple(torch.gather(t, 1, (cl // c)[..., None].expand(-1, -1, 8)) for t in excl)
+        pts = g1_vec.point_add(wpts, opts)
+        return g1_vec.point_select(idx >= 0, pts, g1_vec.identity((w, b), device=dev))
+
+    return g1_vec.point_add(gather_pts(ends), g1_vec.point_neg(gather_pts(prev)))
+
+
+def k3_splice_rows(smoke, recorded) -> list:
+    from halo2_rsa_tpu_torch.prover import g1_vec
+
+    shapes = [(r["kind"], r["rows"], r["buckets"], r["npad"], r["nchunks"])
+              for r in recorded["k3_splice"]["shapes"]]
+    if hasattr(g1_vec, "bucket_splice"):
+        def make(w, i, e):
+            return lambda: g1_vec.bucket_splice(w, i, e)
+    else:  # a checkout from before the splice kernel
+        def make(w, i, e):
+            return lambda: _splice_by_gathers(g1_vec, w, i, e)
+    return smoke.k3_splice_times(make, shapes, smoke.k3_splice_inputs(*shapes[0][1:]))
+
+
 def k4_rows(smoke, recorded) -> list:
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
@@ -156,8 +195,8 @@ def _mismatches(kernel: str, rows: list) -> list:
 
 
 def _key(r) -> str:
-    return " ".join(f"{k}={r[k]}" for k in ("kind", "m", "c", "p", "n", "rows", "len", "tree")
-                    if k in r)
+    return " ".join(f"{k}={r[k]}" for k in ("kind", "m", "c", "p", "n", "rows", "len", "tree",
+                                            "buckets", "npad", "nchunks") if k in r)
 
 
 def main() -> int:
@@ -182,7 +221,7 @@ def main() -> int:
         rows += msm_rows(chip_smoke)
     elif args.kernel == "k3":
         rows = (k3_rows(chip_smoke, recorded) + k3_scan_rows(chip_smoke, recorded)
-                + msm_rows(chip_smoke))
+                + k3_splice_rows(chip_smoke, recorded) + msm_rows(chip_smoke))
     else:
         rows = k4_rows(chip_smoke, recorded)
     bad = _mismatches(args.kernel, rows)

@@ -216,6 +216,55 @@ def test_k3_scan_wrappers_reject_long_rows_other_fields_and_bad_tensors(cuda):
     assert cuda_g1.LAUNCHES["g1_scan"] == before
 
 
+def _splice_input(base, rows, npad, c, buckets, device):
+    """within (rows, npad), incl (rows, npad / c) drawn from ``base`` (lane 1
+    the identity) and ends (rows, buckets) from sorted digits: row 0 leaves
+    buckets 0-6 empty (ends -1), row 1 puts every point in one bucket."""
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, base[0].shape[0], (rows, npad + npad // c), generator=gen).to(device)
+    within = tuple(t[idx[:, :npad]] for t in base)
+    incl = tuple(t[idx[:, npad:]] for t in base)
+    digits = torch.randint(0, buckets, (rows, npad), generator=gen)
+    digits[0] = digits[0].clamp(min=7)
+    digits[1] = buckets // 2
+    ds, _ = digits.sort(dim=1)
+    targets = torch.arange(buckets).expand(rows, buckets).contiguous()
+    ends = (torch.searchsorted(ds, targets, right=True) - 1).to(device)
+    return within, incl, ends
+
+
+@pytest.mark.cuda
+def test_k3_splice_kernel_matches_plain(cuda):
+    fq = g1_vec.FQ
+    base = _points(600, cuda)
+    for rows, npad, c, buckets in ((3, 40, 8, 16), (4, 512, 64, 256), (2, 4096, 64, 256)):
+        within, incl, ends = _splice_input(base, rows, npad, c, buckets, cuda)
+        before = cuda_g1.LAUNCHES["g1_splice"]
+        got = cuda_g1.bucket_splice(fq, within, incl, ends)
+        assert cuda_g1.LAUNCHES["g1_splice"] == before + 1
+        for g, w in zip(got, cuda_g1.bucket_splice_plain(fq, within, incl, ends)):
+            assert torch.equal(g, w), (rows, npad, c, buckets)
+
+
+@pytest.mark.cuda
+def test_k3_splice_wrapper_rejects_other_fields_and_bad_tensors(cuda):
+    fq = g1_vec.FQ
+    within, incl, ends = _splice_input(_points(40, cuda), 2, 16, 4, 8, cuda)
+    off = tuple(torch.zeros(2 * 16 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(2, 16, 8)
+                for _ in range(3))
+    bad = [
+        (fq, off, incl, ends),  # 4 bytes past a 16-byte boundary
+        (fq, within, incl, ends.cpu()),
+        (fq, within, incl, ends.to(torch.int32)),
+        (fq, within, tuple(c[:, :3] for c in incl), ends),  # 16 points, 3 chunks
+    ] + [(vecfield.consts(f), within, incl, ends) for f in ALL_FIELDS if f.p != fq.field.p]
+    before = cuda_g1.LAUNCHES["g1_splice"]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_g1.bucket_splice(*args)
+    assert cuda_g1.LAUNCHES["g1_splice"] == before
+
+
 def _fq_lazy_constants() -> dict:
     """q, 2q, 2^256 - q, N0INV and QTOP_RECIP as csrc/fq_lazy.cuh spells
     them."""

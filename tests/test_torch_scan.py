@@ -1,12 +1,13 @@
-"""K3's row scans (the MSM's Hillis–Steele scans and halving trees) of the
-PyTorch port against the JAX package.
+"""K3's row scans (the MSM's Hillis–Steele scans and halving trees) and its
+bucket splice, of the PyTorch port against the JAX package.
 
 ``cuda_g1.point_scan_plain`` and ``point_scan_sum_plain`` are held bitwise
 against the JAX package's ``msm._hs_point_scan`` and ``msm._bucket_reduce``
 on the CPU, over rows that hold the identity, runs of one point (P+P in the
 first round) and P, -P neighbours, all with random Z (numpy seed). The row
 length bound of the kernel is checked against every MSM size the prover
-runs.
+runs. ``msm._bucket_sums``, which ends in ``cuda_g1.bucket_splice``, is
+held bitwise against the JAX package's, with empty buckets first.
 """
 
 import numpy as np
@@ -113,3 +114,62 @@ def test_msm_rows_fit_the_scan_kernel():
         assert npow % c_len == 0 and npow // c_len <= cuda_g1.MAX_ROW, npow
         assert (1 << tmsm._window_bits_for(npow)) - 1 <= cuda_g1.MAX_ROW
     assert tmsm._SEG // tmsm._pick_chunk(tmsm._SEG) == cuda_g1.MAX_ROW
+
+
+@pytest.mark.parametrize("z_one", [True, False])
+def test_bucket_sums_match_jax_with_empty_buckets(z_one):
+    """3 windows x 40 points (chunks of 8), 16 buckets: window 0 leaves
+    buckets 0-2 empty (their ends are -1), window 1 puts every point in
+    bucket 5, window 2 draws digits at random."""
+    rng = np.random.default_rng(31)
+    n, buckets = 40, 16
+    digits = np.stack([rng.integers(3, buckets, size=n), np.full(n, 5),
+                       rng.integers(0, buckets, size=n)])
+    aff = [curve.g1_mul(curve.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=n)]
+    if z_one:
+        coords = [[p[0] for p in aff], [p[1] for p in aff], [1] * n]
+    else:
+        aff[3] = None
+        zs = [int(z) % curve.Q or 1 for z in rng.integers(1, 1 << 62, size=n)]
+        coords = [[0 if p is None else p[0] * z % curve.Q for p, z in zip(aff, zs)],
+                  [z if p is None else p[1] * z % curve.Q for p, z in zip(aff, zs)],
+                  [0 if p is None else z for p, z in zip(aff, zs)]]
+    tp = tuple(tvf.from_ints(tg1.FQ, c, device="cpu") for c in coords)
+    jp = tuple(jg1.vecfield.from_ints(jg1.FQ, c) for c in coords)
+    got = tmsm._bucket_sums(torch.from_numpy(digits), tp, buckets, z_one)
+    assert all(c.shape == (3, buckets, 8) for c in got)
+    _same(got, jmsm._bucket_sums(digits.astype(np.int32), jp, buckets, z_one))
+    want = [[None] * buckets for _ in range(3)]
+    for w in range(3):
+        for d, p in zip(digits[w], aff):
+            want[w][d] = curve.g1_add(want[w][d], p)
+    assert tg1.points_from_device(tuple(c.reshape(-1, 8) for c in got)) == sum(want, [])
+
+
+def test_bucket_splice_rejects_bad_shapes():
+    within = tg1.identity((2, 16), device="cpu")
+    incl = tg1.identity((2, 4), device="cpu")
+    ends = torch.full((2, 5), -1, dtype=torch.int64)
+    for bad in (
+        (within[:2], incl, ends),  # no Z
+        (within, tuple(c[:, :3] for c in incl), ends),  # 16 points, 3 chunks
+        (within, tuple(c[:1] for c in incl), ends),  # rows differ
+        (within, incl, ends[:1]),
+        (within, incl, ends.to(torch.int32)),
+        (tuple(c[..., :4] for c in within), incl, ends),  # not 8 limbs
+    ):
+        for fn in (cuda_g1.bucket_splice_plain, cuda_g1.bucket_splice):
+            with pytest.raises(ValueError):
+                fn(tg1.FQ, *bad)
+
+
+def test_scan_cluster_fills_the_card_without_splitting_warps():
+    """Blocks per row: as many (up to 8) as keep rows x blocks within the
+    card's SMs, while each block holds a warp of the row."""
+    sms = 132
+    assert [cuda_g1.scan_cluster(rows, 512, False, sms) for rows in (128, 64, 32, 16, 1)] == \
+        [1, 2, 4, 8, 8]
+    assert [cuda_g1.scan_cluster(rows, 255, True, sms) for rows in (128, 64, 32)] == [1, 2, 4]
+    assert cuda_g1.scan_cluster(3, 40, False, sms) == 1  # 40 points: one block of them
+    assert cuda_g1.scan_cluster(3, 64, False, sms) == 2
+    assert cuda_g1.scan_cluster(2, 15, True, sms) == 1
