@@ -6,12 +6,10 @@
 //
 // A row of len <= 512 points (rows, len, 8 limbs per coordinate) is owned by
 // one block, or by a cluster of k = 2, 4 or 8 blocks that read each other's
-// shared memory. Each thread owns two elements of its block's slice and
-// keeps their running values in registers, in [0, 2q) (the add needs more
-// than the 128 registers a thread of a 512-thread block may have). Each
-// round it publishes both values to shared memory; after a barrier it reads
-// the partners of its active elements, and after a second barrier it adds
-// them:
+// shared memory. Thread i owns element i and keeps its running value in
+// registers, in [0, 2q). Each round it publishes that value to shared memory;
+// after a barrier the active threads read their partner's, and after a second
+// barrier they add it:
 //   * scan round d = 1, 2, 4, ... < len: element i >= d adds element i - d
 //     (acc_i + acc_{i-d}, the operand order of msm._hs_point_scan), the others
 //     keep their value (its point_select);
@@ -39,12 +37,10 @@
 namespace cg = cooperative_groups;
 
 constexpr int kMaxLen = 512;
-constexpr int kPerThread = 2;  // elements per thread
-constexpr int kMaxThreads = kMaxLen / kPerThread;
 
-// A block's slice of S elements of a row in shared memory: half h of
-// coordinate c of element l at s[(2 c + h) S + l], so that a warp's 16-byte
-// accesses are contiguous.
+// A block's slice of a row in shared memory: half h of coordinate c of
+// element e at s[(2 c + h) T + e], so that a warp's 16-byte accesses are
+// contiguous.
 __device__ __forceinline__ void put8(uint4* s, int lo, int hi, const uint32_t a[fq::N]) {
   s[lo] = make_uint4(a[0], a[1], a[2], a[3]);
   s[hi] = make_uint4(a[4], a[5], a[6], a[7]);
@@ -64,56 +60,39 @@ __device__ __forceinline__ void row_sync() {
   }
 }
 
-// The running values of a thread's elements l = t + e T of its block's
-// slice (e < kPerThread).
-struct Owned {
-  uint32_t x[kPerThread][fq::N], y[kPerThread][fq::N], z[kPerThread][fq::N];
-};
-
-// One round: publish the owned values; for each active element, read
-// element j[e] of the row (held by block j[e] / S of the cluster) and add
-// it: value += element j[e].
+// One round: publish (x, y, z); if active, read element j of the row (held
+// by block j / T of the cluster) and add it: (x, y, z) += element j.
 template <int CLUSTERED>
-__device__ __forceinline__ void round_add(uint4* smem, int S, int T, int t, Owned& v,
-                                          const bool active[kPerThread],
-                                          const int j[kPerThread]) {
-#pragma unroll
-  for (int e = 0; e < kPerThread; ++e) {
-    const int l = t + e * T;
-    put8(smem, l, S + l, v.x[e]);
-    put8(smem, 2 * S + l, 3 * S + l, v.y[e]);
-    put8(smem, 4 * S + l, 5 * S + l, v.z[e]);
-  }
+__device__ __forceinline__ void round_add(uint4* smem, int T, int t, uint32_t x[fq::N],
+                                          uint32_t y[fq::N], uint32_t z[fq::N], bool active,
+                                          int j) {
+  put8(smem, t, T + t, x);
+  put8(smem, 2 * T + t, 3 * T + t, y);
+  put8(smem, 4 * T + t, 5 * T + t, z);
   row_sync<CLUSTERED>();
-  Owned p;
-#pragma unroll
-  for (int e = 0; e < kPerThread; ++e) {
-    if (active[e]) {
-      const uint4* s = smem;
-      const int owner = j[e] / S, l = j[e] - owner * S;
-      if constexpr (CLUSTERED) s = cg::this_cluster().map_shared_rank(smem, (unsigned)owner);
-      get8(s, l, S + l, p.x[e]);
-      get8(s, 2 * S + l, 3 * S + l, p.y[e]);
-      get8(s, 4 * S + l, 5 * S + l, p.z[e]);
-    }
+  uint32_t px[fq::N], py[fq::N], pz[fq::N];
+  if (active) {
+    const uint4* s = smem;
+    const int owner = j / T, e = j - owner * T;
+    if constexpr (CLUSTERED) s = cg::this_cluster().map_shared_rank(smem, (unsigned)owner);
+    get8(s, e, T + e, px);
+    get8(s, 2 * T + e, 3 * T + e, py);
+    get8(s, 4 * T + e, 5 * T + e, pz);
   }
   row_sync<CLUSTERED>();  // every read is done before the next round publishes
-#pragma unroll
-  for (int e = 0; e < kPerThread; ++e)
-    if (active[e]) add_lazy(v.x[e], v.y[e], v.z[e], p.x[e], p.y[e], p.z[e]);
+  if (active) add_lazy(x, y, z, px, py, pz);
 }
 
 // Rows (rows, len, 8) per coordinate in; out (rows, len, 8) when msize == 0,
-// else (rows, 8): the halving tree's element 0 over msize elements. Each
-// block holds a slice of S = 2 blockDim.x elements of its row.
+// else (rows, 8): the halving tree's element 0 over msize elements.
 template <int CLUSTERED>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kMaxLen, 1)
     h2r_g1_scan_rows_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
                             const uint32_t* __restrict__ zp, uint32_t* __restrict__ xo,
                             uint32_t* __restrict__ yo, uint32_t* __restrict__ zo, int len,
                             int msize) {
   extern __shared__ uint4 smem[];
-  const int T = blockDim.x, S = kPerThread * T, t = threadIdx.x;
+  const int T = blockDim.x, t = threadIdx.x;
   int rank = 0, k = 1;
   if constexpr (CLUSTERED) {
     cg::cluster_group cl = cg::this_cluster();
@@ -121,48 +100,33 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     k = (int)cl.num_blocks();
   }
   const long long row = blockIdx.x / k;
-  int i[kPerThread];  // the owned elements' places in the row
-  Owned v;
-#pragma unroll
-  for (int e = 0; e < kPerThread; ++e) {
-    i[e] = rank * S + t + e * T;
-    if (i[e] < len) {
-      load8(xp, row * len + i[e], v.x[e]);
-      load8(yp, row * len + i[e], v.y[e]);
-      load8(zp, row * len + i[e], v.z[e]);
-    } else {
-      set_identity(v.x[e], v.y[e], v.z[e]);
-    }
+  const int i = rank * T + t;
+  uint32_t x[fq::N], y[fq::N], z[fq::N];
+  if (i < len) {
+    load8(xp, row * len + i, x);
+    load8(yp, row * len + i, y);
+    load8(zp, row * len + i, z);
+  } else {
+    set_identity(x, y, z);
   }
-  bool active[kPerThread];
-  int j[kPerThread];
 #pragma unroll 1
-  for (int d = 1; d < len; d <<= 1) {
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) active[e] = i[e] >= d && i[e] < len, j[e] = i[e] - d;
-    round_add<CLUSTERED>(smem, S, T, t, v, active, j);
-  }
+  for (int d = 1; d < len; d <<= 1)
+    round_add<CLUSTERED>(smem, T, t, x, y, z, i >= d && i < len, i - d);
   if (msize == 0) {
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) {
-      if (i[e] < len) {
-        store8_canon(xo, row * len + i[e], v.x[e]);
-        store8_canon(yo, row * len + i[e], v.y[e]);
-        store8_canon(zo, row * len + i[e], v.z[e]);
-      }
+    if (i < len) {
+      store8_canon(xo, row * len + i, x);
+      store8_canon(yo, row * len + i, y);
+      store8_canon(zo, row * len + i, z);
     }
     return;
   }
 #pragma unroll 1
-  for (int half = msize >> 1; half >= 1; half >>= 1) {
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) active[e] = i[e] < half, j[e] = i[e] + half;
-    round_add<CLUSTERED>(smem, S, T, t, v, active, j);
-  }
-  if (i[0] == 0) {
-    store8_canon(xo, row, v.x[0]);
-    store8_canon(yo, row, v.y[0]);
-    store8_canon(zo, row, v.z[0]);
+  for (int half = msize >> 1; half >= 1; half >>= 1)
+    round_add<CLUSTERED>(smem, T, t, x, y, z, i < half, i + half);
+  if (i == 0) {
+    store8_canon(xo, row, x);
+    store8_canon(yo, row, y);
+    store8_canon(zo, row, z);
   }
 }
 
@@ -180,9 +144,8 @@ extern "C" int h2r_g1_scan_rows(const void* x, const void* y, const void* z, voi
     while (msize < len) msize <<= 1;
   }
   const int span = tree ? msize : len;
-  // each block's slice: 2 threads' worth of elements each, k slices >= span
-  const int threads = (span + kPerThread * cluster - 1) / (kPerThread * cluster);
-  const size_t smem = 6 * sizeof(uint4) * kPerThread * threads;  // 48 KiB at 512 elements
+  const int threads = (span + cluster - 1) / cluster;
+  const size_t smem = 6 * sizeof(uint4) * threads;  // 48 KiB at 512 threads
   const uint32_t* in[3] = {(const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z};
   uint32_t* out[3] = {(uint32_t*)xo, (uint32_t*)yo, (uint32_t*)zo};
   if (cluster == 1) {

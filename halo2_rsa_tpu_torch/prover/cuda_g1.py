@@ -39,9 +39,9 @@ from ..fields.field import BN254_FQ
 from ..fields.vecfield import add_u64 as add, sub_u64 as sub
 
 LAUNCHES = {"g1_add_mixed": 0, "g1_add": 0, "g1_scan": 0, "g1_splice": 0, "g1_double": 0}
-# the longest row of a point scan: one row per block of at most 256 threads
-# of two elements each (or per cluster of blocks); the MSM's rows are its
-# chunk totals (at most 2^15 / 64 under msm._SEG) and its buckets (255)
+# the longest row of a point scan: one row per block of at most 512 threads
+# (or per cluster of blocks); the MSM's rows are its chunk totals (at most
+# 2^15 / 64 under msm._SEG) and its buckets (255)
 MAX_ROW = 512
 MAX_CLUSTER = 8  # blocks per row of a point scan: the portable cluster size
 
