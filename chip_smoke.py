@@ -166,7 +166,8 @@ def phase_build(report):
     dt = time.perf_counter() - t0
     usage = ptxas_usage(log.getvalue())
     report["build"] = dict(seconds=dt, library=os.path.relpath(path, HERE), ptxas=usage)
-    line(f"[2 build] K1-K4 (K3 with its row scans and bucket splice), P1, P2 built for sm_90a in {dt:.2f} s -> {report['build']['library']}")
+    line(f"[2 build] K1-K4 (K3 with its row scans and bucket splice), P1, P2 built for sm_90a "
+         f"in {dt:.2f} s -> {report['build']['library']}")
     k4_use = [u for sym, u in usage.items() if "h2r_g1_double_kernel" in sym]
     spilled = [sym for sym, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")]
     k2_use = [u for sym, u in usage.items() if "h2r_g1_scan_mixed_kernel" in sym]
@@ -376,7 +377,8 @@ def _parity_g1(report, kernels):
             torch.cuda.synchronize()
             err = _max_abs_err(lazy, want)
             if err:
-                raise AssertionError(f"K3 on lifted coordinates differs from its plain version: {err}")
+                raise AssertionError(f"K3 on lifted coordinates differs from its plain version: "
+                                     f"{err}")
             extra = "; also on coordinates lifted by q"
         line(f"[3 parity] {key} {name}: 2^16 points bitwise equal (identity, P+P, P-P, "
              f"host affine{extra})")
@@ -785,82 +787,70 @@ def k3_times(add, plain, shapes, pts) -> list:
     return out
 
 
-def k3_scan_times(make, shapes, rows, plain=None) -> list:
-    """The row scans at each (kind, rows, len, tree) of ``shapes``, on the
-    first rows x len points of ``rows``. ``make(s, tree)`` returns a call
-    that computes them: one scan launch, or, for a checkout without
-    ``point_scan``, its round-by-round ``msm._hs_point_scan`` or
-    ``msm._bucket_reduce``. The result is hashed (``digest``) and, given
-    ``plain(s, tree)``, held bitwise against it (``plain_ms`` that run's);
-    then ms per call on the card alone (``queued_ms``) and paced by the
-    host (``chain_ms``). ``scripts/time_kernels.py`` runs it on another
-    checkout's wrappers."""
+def _check_and_time(res: dict, call, x, plain=None, label: str = "") -> dict:
+    """Fills ``res`` for one shape: the sha256 of ``call()``'s result
+    (``digest``, for comparing checkouts); given ``plain`` (a call), its ms
+    and the largest difference from it, which must be 0; then ms per call on
+    the card alone (``queued_ms``) and paced by the host (``chain_ms``),
+    over K3_SCAN_ITERS calls behind ``x``."""
     import torch
 
     from halo2_rsa_tpu_torch.utils.profiling import chain_ms
 
+    got = call()
+    res["digest"] = _digest(got)
+    if plain is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        res["max_abs_err"] = _max_abs_err(got, want)
+        if res["max_abs_err"]:
+            raise AssertionError(f"{label} differs from its plain version")
+    del got
+    step = lambda q: (call(), q)[1]  # noqa: E731
+    res.update(ms=queued_ms(step, x, K3_SCAN_ITERS), host_paced_ms=chain_ms(step, x, K3_SCAN_ITERS))
+    return res
+
+
+def k3_scan_times(make, shapes, rows, plain=None) -> list:
+    """The row scans at each (kind, rows, len, tree) of ``shapes``, on the
+    first rows x len points of ``rows`` (``_check_and_time``). ``make(s,
+    tree)`` returns a call that computes them: one scan launch, or, for a
+    checkout without ``point_scan``, its round-by-round
+    ``msm._hs_point_scan`` or ``msm._bucket_reduce``; ``plain(s, tree)``
+    their plain version. ``scripts/time_kernels.py`` runs it on another
+    checkout's wrappers."""
     out = []
     for kind, m, n, tree in shapes:
         s = tuple(c[:m, :n].contiguous() for c in rows)
-        call = make(s, tree)
-        got = call()
-        res = dict(kind=kind, rows=m, len=n, tree=tree, digest=_digest(got))
-        if plain is not None:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain(s, tree)
-            torch.cuda.synchronize()
-            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
-            res["max_abs_err"] = _max_abs_err(got, want)
-            if res["max_abs_err"]:
-                raise AssertionError(f"K3-scan at {m} rows x {n}, tree {tree}, differs from its "
-                                     "plain version")
-        del got
-        step = lambda q: (call(), q)[1]  # noqa: E731
-        res.update(ms=queued_ms(step, s[0], K3_SCAN_ITERS),
-                   host_paced_ms=chain_ms(step, s[0], K3_SCAN_ITERS))
-        out.append(res)
+        out.append(_check_and_time(
+            dict(kind=kind, rows=m, len=n, tree=tree), make(s, tree), s[0],
+            plain and (lambda s=s, tree=tree: plain(s, tree)),
+            f"K3-scan at {m} rows x {n}, tree {tree},"))
     return out
 
 
 def k3_splice_times(make, shapes, inputs, plain=None) -> list:
     """The bucket splice at each (kind, rows, buckets, npad, nchunks) of
-    ``shapes``, on the first rows of ``inputs`` (``k3_splice_inputs``).
-    ``make(within, incl, ends)`` returns a call that computes it: one splice
-    launch, or, for a checkout without ``bucket_splice``, the gathers, adds
-    and selects of its ``msm._bucket_sums``. Hashed (``digest``) and, given
-    ``plain``, held bitwise against it (``plain_ms`` that run's); then ms per
-    call on the card alone (``queued_ms``) and paced by the host
-    (``chain_ms``). ``scripts/time_kernels.py`` runs it on another
-    checkout's wrappers."""
-    import torch
-
-    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
-
+    ``shapes``, on the first rows of ``inputs`` (``k3_splice_inputs``;
+    ``_check_and_time``). ``make(within, incl, ends)`` returns a call that
+    computes it: one splice launch, or, for a checkout without
+    ``bucket_splice``, the gathers, adds and selects of its
+    ``msm._bucket_sums``; ``plain`` takes the same arguments.
+    ``scripts/time_kernels.py`` runs it on another checkout's wrappers."""
     out = []
     for kind, m, b, npad, nchunks in shapes:
         within, incl = (tuple(c[:m] for c in part) for part in inputs[:2])
         ends = inputs[2][:m]
         if (ends.shape[1], within[0].shape[1], incl[0].shape[1]) != (b, npad, nchunks):
             raise ValueError(f"K3-splice inputs do not hold the shape {(m, b, npad, nchunks)}")
-        call = make(within, incl, ends)
-        got = call()
-        res = dict(kind=kind, rows=m, buckets=b, npad=npad, nchunks=nchunks, digest=_digest(got))
-        if plain is not None:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain(within, incl, ends)
-            torch.cuda.synchronize()
-            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
-            res["max_abs_err"] = _max_abs_err(got, want)
-            if res["max_abs_err"]:
-                raise AssertionError(f"K3-splice at {m} rows x {b} buckets differs from its "
-                                     "plain version")
-        del got
-        step = lambda q: (call(), q)[1]  # noqa: E731
-        res.update(ms=queued_ms(step, ends, K3_SCAN_ITERS),
-                   host_paced_ms=chain_ms(step, ends, K3_SCAN_ITERS))
-        out.append(res)
+        out.append(_check_and_time(
+            dict(kind=kind, rows=m, buckets=b, npad=npad, nchunks=nchunks),
+            make(within, incl, ends), ends,
+            plain and (lambda w=within, i=incl, e=ends: plain(w, i, e)),
+            f"K3-splice at {m} rows x {b} buckets"))
     return out
 
 
@@ -995,7 +985,8 @@ def phase_k2(report, kernels):
 
 
 def _row_fields(kernel, row) -> dict:
-    """A kernels-line row's times from one shape's timing."""
+    """A kernels-line row's times from one shape's timing (every shape's
+    error is 0, or its timing raised)."""
     return dict(ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
                 max_abs_err=max(kernel["max_abs_err"], row["max_abs_err"]), timing="queued")
 
@@ -1021,11 +1012,8 @@ def phase_k3(report, kernels):
     report["k3"] = dict(shapes=out)
     # the kernels line's K3 row: the path's largest shape
     row = _path_row(out, "n")
-    kernels["K3"].update(
-        ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
-        max_abs_err=max([kernels["K3"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
-        shape=f"{row['n']} points (the flagship's widest K3 launch)", timing="queued",
-    )
+    kernels["K3"].update(**_row_fields(kernels["K3"], row),
+                         shape=f"{row['n']} points (the flagship's widest K3 launch)")
 
     # the row scans at their recorded shapes, with the wrappers' cluster
     # choice, then with every cluster size
