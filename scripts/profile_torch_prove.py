@@ -6,7 +6,7 @@ once to warm up, then profiles one warm prove with ``torch.profiler``
 (CPU + CUDA activities) and writes:
 
 * chiprun_out/profile_prove.json — device busy/idle share, kernel time by
-  name (top 25), the four hand-written kernels' totals, per-round Phases,
+  name (top 25), the hand-written prover kernels' totals, per-round Phases,
   and the per-layer times: one MSM of 2^15 affine SRS points and one NTT
   of 2^18 elements (mean of 5 after a warm-up, host clock around
   ``torch.cuda.synchronize``).
@@ -98,7 +98,8 @@ def main() -> int:
     rows.sort(key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
     ours = {key: [0.0, 0] for key in ("h2r_mont_mul", "h2r_g1_scan_mixed", "h2r_g1_add",
-                                      "h2r_g1_scan_rows", "h2r_g1_double")}
+                                      "h2r_g1_scan_rows", "h2r_g1_bucket_splice",
+                                      "h2r_g1_double")}
     for name, us, cnt in rows:
         for key in ours:
             if key + "_kernel" in name:  # a template kernel demangles as "void name<...>(...)"
