@@ -621,7 +621,9 @@ def phase_flagship(report, kernels):
     counts = counts_now()
     f["launches"] = counts
     f["launches_per_warm_prove"] = per_prove
-    f["g1_calls_per_warm_prove"] = _g1_calls_of_one_prove(timed_prove, per_prove)
+    calls = _calls_of_one_prove(timed_prove, per_prove)
+    f["k1_calls_per_warm_prove"] = calls.pop("K1")
+    f["g1_calls_per_warm_prove"] = calls
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
          + ", ".join(f"{k_}={v}" for k_, v in counts.items())
@@ -631,18 +633,21 @@ def phase_flagship(report, kernels):
         kernels[key]["launches_per_warm_prove"] = per_prove[key]
         if v == 0:
             raise AssertionError(f"{key} was never launched on the flagship path")
+    return dict(circ=circ, compiled=compiled)
 
 
-def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
+def _calls_of_one_prove(timed_prove, per_prove) -> dict:
     """{kernel: [[shape..., launches], ...]} over one more warm prove, read
-    by pass-through wrappers around the K2-K4 wrappers (launch counts are
-    already taken): K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the
-    tree else 0), K3-splice (rows, buckets, npad, nchunks), K4 (points,
-    doublings). Each kernel's launches must add up to its count over a warm
-    prove."""
+    by pass-through wrappers around the K1-K4 wrappers (launch counts are
+    already taken): K1 (products,), K2 (rows, C), K3 (points,), K3-scan
+    (rows, L, 1 with the tree else 0), K3-splice (rows, buckets, npad,
+    nchunks), K4 (points, doublings). Each kernel's launches must add up to
+    its count over a warm prove."""
+    from halo2_rsa_tpu_torch.fields import cuda_mont
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
-    calls = {key: collections.Counter() for key in ("K2", "K3", "K3-scan", "K3-splice", "K4")}
+    calls = {key: collections.Counter()
+             for key in ("K1", "K2", "K3", "K3-scan", "K3-splice", "K4")}
 
     def points(t):
         return t.numel() // t.shape[-1]
@@ -651,33 +656,36 @@ def _g1_calls_of_one_prove(timed_prove, per_prove) -> dict:
         return points(t) // t.shape[-2]
 
     shape_of = {
-        "point_scan_mixed": ("K2", lambda fc, p1, pts: (points(p1[0]), pts[0].shape[-2])),
-        "point_add_mixed": ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
-        "point_add": ("K3", lambda fc, p1, p2: (points(p1[0]),)),
-        "point_scan": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 0)),
-        "point_scan_sum": ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 1)),
-        "bucket_splice": ("K3-splice", lambda fc, within, incl, ends: (
+        (cuda_mont, "mont_mul"): ("K1", lambda fc, a, b: (points(a),)),
+        (cuda_g1, "point_scan_mixed"): ("K2", lambda fc, p1, pts: (
+            points(p1[0]), pts[0].shape[-2])),
+        (cuda_g1, "point_add_mixed"): ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
+        (cuda_g1, "point_add"): ("K3", lambda fc, p1, p2: (points(p1[0]),)),
+        (cuda_g1, "point_scan"): ("K3-scan", lambda fc, ps: (rows(ps[0]), ps[0].shape[-2], 0)),
+        (cuda_g1, "point_scan_sum"): ("K3-scan", lambda fc, ps: (
+            rows(ps[0]), ps[0].shape[-2], 1)),
+        (cuda_g1, "bucket_splice"): ("K3-splice", lambda fc, within, incl, ends: (
             ends.shape[0], ends.shape[1], within[0].shape[1], incl[0].shape[1])),
-        "point_double": ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
+        (cuda_g1, "point_double"): ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
     }
-    real = {name: getattr(cuda_g1, name) for name in shape_of}
+    real = {target: getattr(*target) for target in shape_of}
 
-    def recorder(name):
-        key, shape = shape_of[name]
+    def recorder(target):
+        key, shape = shape_of[target]
 
         def wrapped(*args, **kw):
             calls[key][shape(*args, **kw)] += 1
-            return real[name](*args, **kw)
+            return real[target](*args, **kw)
 
         return wrapped
 
-    for name in shape_of:
-        setattr(cuda_g1, name, recorder(name))
+    for target in shape_of:
+        setattr(*target, recorder(target))
     try:
         timed_prove()
     finally:
-        for name, fn in real.items():
-            setattr(cuda_g1, name, fn)
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
     for key, hist in calls.items():
         if sum(hist.values()) != per_prove[key]:
             raise AssertionError(f"{key} launches recorded {sum(hist.values())} differ from "
@@ -867,6 +875,43 @@ def _empty_launch(report):
                                   host_paced_ms=chain_ms(step, empty, 200))
     line("[6 empty] empty launch: card {ms:.4f} ms, host-paced {host_paced_ms:.4f} ms".format(
         **report["empty_launch"]))
+
+
+def phase_k1(report, kernels):
+    """K1 at every shape (products per launch) one warm prove launches it
+    with, on random BN254 Fr operands: each bitwise against the plain
+    version (one plain run at the largest shape; K1 is elementwise, so a
+    shape's products are that run's first n) and timed on the card alone
+    (``queued_ms``). The 2^20 parity row is phase 3's."""
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    fc = vecfield.consts(BN254_FR)
+    hist = {n: k for n, k in report["flagship"]["k1_calls_per_warm_prove"]}
+    top = max(hist)
+    a = mont_layout.random_elements(fc, top, 31, "cuda")
+    b = mont_layout.random_elements(fc, top, 32, "cuda")
+    want = cuda_mont.mont_mul_plain(fc, a, b)
+    out = []
+    for n in sorted(hist):
+        x, y = a[:n], b[:n]
+        err = _max_abs_err(cuda_mont.mont_mul(fc, x, y), want[:n])
+        if err:
+            raise AssertionError(f"K1 at {n} products differs from its plain version")
+        out.append(dict(kind="path", n=n, launches_per_warm_prove=hist[n], max_abs_err=err,
+                        ms=queued_ms(lambda v, y=y: cuda_mont.mont_mul(fc, v, y), x,
+                                     QUEUED_ITERS)))
+    k1 = kernels["K1"]
+    out.append(dict(kind="parity", n=1 << 20, launches_per_warm_prove=0,
+                    max_abs_err=k1["max_abs_err"], ms=k1["ms"]))
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in out)
+    report["k1"] = dict(shapes=out)
+    card = sum(r["launches_per_warm_prove"] * r["ms"] for r in out)
+    report["k1"]["card_ms_per_warm_prove"] = card
+    line(f"[6 K1] {len(hist)} path shapes, 1 to {top} products per launch, {sum(hist.values())} "
+         f"launches per warm prove: all bitwise equal | card time per warm prove (sum of "
+         f"launches x queued ms) {card:.3f} ms")
 
 
 def k2_inputs(m: int, c: int):
@@ -1260,6 +1305,24 @@ def _scan_part(sass, r):
     return (r["rows"], nbytes, {f: sass["K3"][f] * adds for f in ("fma", "alu", "issued", "int")})
 
 
+def _k1_part(sass, r):
+    # reads 2 elements and writes 1 per product
+    return (r["n"], 96, sass["K1"])
+
+
+def shape_bound(report, n: int, nbytes: int, counts: dict) -> dict:
+    """The least time of one launch over n elements of nbytes each, whose
+    SASS per element is ``counts``: the larger of its bytes over HBM_BYTES_S
+    and its instructions over the pipes' and issue's rates (phase 9's
+    ``int_rate``)."""
+    rate = report["int_rate"]
+    mem = n * nbytes / HBM_BYTES_S * 1e3
+    ops = n * max(counts["fma"] / rate["pipe_per_s"], counts["alu"] / rate["pipe_per_s"],
+                  counts["issued"] / rate["issue_per_s"]) * 1e3
+    return dict(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations",
+                bytes_ms=mem, ops_ms=ops)
+
+
 def _path_row(shapes, size: str):
     return max((r for r in shapes if r["kind"] == "path"), key=lambda r: r[size])
 
@@ -1329,10 +1392,10 @@ def phase_bounds(report, kernels):
              + "; once per thread (load, canonicalise, store): FMA pipe {fma}, ALU pipe {alu}, "
                "issued {issued}".format(**sass[key]["rest"]))
     # the next redesign's rank: launches per warm prove x (kernel ms - bound
-    # ms), summed over each kernel's path shapes (K1 at its parity shape)
-    k1 = kernels["K1"]
-    rank = {"K1": k1["launches_per_warm_prove"] * (k1["ms"] - k1["bound_ms"])}
+    # ms), summed over each kernel's path shapes
+    rank = {}
     for key, part, dims in (
+            ("K1", _k1_part, None),
             ("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
             ("K3", _k3_part, lambda r: f"n={r['n']}"),
             ("K3-scan", _scan_part, lambda r: (
@@ -1345,18 +1408,237 @@ def phase_bounds(report, kernels):
             ("K4", _k4_part, lambda r: f"n={r['n']} reps={r['reps']}")):
         rank[key] = 0.0
         for r in report[key.lower().replace("-", "_")]["shapes"]:
-            n, nb, cnt = part(sass, r)
-            mem = n * nb / HBM_BYTES_S * 1e3
-            ops = n * max(cnt["fma"] / pipe, cnt["alu"] / pipe, cnt["issued"] / issue) * 1e3
-            r.update(bound_ms=max(mem, ops), bound_by="bytes" if mem >= ops else "operations",
-                     bytes_ms=mem, ops_ms=ops)
+            r.update(shape_bound(report, *part(sass, r)))
             rank[key] += r["launches_per_warm_prove"] * (r["ms"] - r["bound_ms"])
-            line(f"[9 bounds] {key} {r['kind']} {dims(r)}: {r['ms']:.4f} ms vs bound "
-                 f"{r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {mem:.6f}, pipes/issue "
-                 f"{ops:.6f}); empty launch {empty:.4f} ms")
+            if dims:
+                line(f"[9 bounds] {key} {r['kind']} {dims(r)}: {r['ms']:.4f} ms vs bound "
+                     f"{r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {r['bytes_ms']:.6f}, "
+                     f"pipes/issue {r['ops_ms']:.6f}); empty launch {empty:.4f} ms")
+    # K1's path shapes in buckets of products per launch (2^(b-1), 2^b]
+    buckets = collections.defaultdict(lambda: dict(shapes=0, launches=0, ms=0.0, bound_ms=0.0))
+    for r in report["k1"]["shapes"]:
+        if r["kind"] == "path":
+            bk = buckets[(r["n"] - 1).bit_length()]
+            bk["shapes"] += 1
+            bk["launches"] += r["launches_per_warm_prove"]
+            bk["ms"] += r["launches_per_warm_prove"] * r["ms"]
+            bk["bound_ms"] += r["launches_per_warm_prove"] * r["bound_ms"]
+    report["k1"]["buckets"] = {b: buckets[b] for b in sorted(buckets)}
+    for b, bk in report["k1"]["buckets"].items():
+        line(f"[9 bounds] K1 path, {1 << max(b - 1, 0)}-{1 << b} products per launch: "
+             f"{bk['shapes']} shapes, {bk['launches']} launches per warm prove, "
+             f"{bk['ms']:.4f} ms (sum of launches x queued ms) vs bound {bk['bound_ms']:.6f} ms "
+             f"= {bk['bound_ms'] / bk['ms'] * 100:.1f} % of bound")
+    k1 = report["k1"]
+    line(f"[9 bounds] K1 over its path shapes: {k1['card_ms_per_warm_prove']:.4f} ms of card time "
+         f"per warm prove, rank {rank['K1']:.4f} ms (bound {k1['card_ms_per_warm_prove'] - rank['K1']:.4f} "
+         f"ms); at the 2^20 parity shape {kernels['K1']['ms']:.4f} ms vs bound "
+         f"{kernels['K1']['bound_ms']:.4f} ms")
     report["rank_ms_per_warm_prove"] = rank
     line("[9 bounds] rank, launches per warm prove x (ms - bound ms): " + ", ".join(
         f"{k_} {v:.2f} ms" for k_, v in rank.items()))
+
+
+CHECK_BITS, CHECK_BATCH, CHECK_ITERS = 2048, 256, 20  # BASELINE config #1 (bench.py:34-118)
+
+
+def config1_builders() -> list:
+    """bench.py's config #1: ``BigIntChip(b, 64, 2048)`` ``mul_mod`` with n
+    from ``random.Random(0)`` and a, b from seeds 0-3, the product asserted
+    equal to a fresh assignment of the answer; four real witnesses of one
+    trace shape."""
+    from halo2_rsa_tpu_torch.bigint import BigIntChip
+    from halo2_rsa_tpu_torch.circuit import Builder
+    from halo2_rsa_tpu_torch.fields import BN254_FR
+
+    rng = random.Random(0)
+    n_v = 0
+    while n_v.bit_length() != CHECK_BITS:
+        n_v = rng.getrandbits(CHECK_BITS)
+    out = []
+    for seed in range(4):
+        r = random.Random(seed)
+        a_v = r.getrandbits(CHECK_BITS) % n_v
+        b_v = r.getrandbits(CHECK_BITS) % n_v
+        b = Builder(BN254_FR)
+        chip = BigIntChip(b, 64, CHECK_BITS)
+        res = chip.mul_mod(chip.assign_integer(a_v), chip.assign_integer(b_v),
+                           chip.assign_integer(n_v))
+        chip.assert_equal_fresh(res, chip.assign_integer((a_v * b_v) % n_v))
+        out.append(b)
+    return out
+
+
+def corrupt(builder, rng, values=None, gates: int = 3, lookups: int = 3) -> list:
+    """A copy of ``values`` (default the builder's) with ``gates`` cells of
+    gate rows set to random canonical values and ``lookups`` lookup cells set
+    to 2^bits, 2^31 + 5 (bit 31 of limb 0 set) and 2^63 + 1 in turn; ``rng``
+    is a numpy Generator."""
+    import numpy as np
+
+    p = builder.field.p
+    vals = list(builder.values if values is None else values)
+    for c in rng.choice(np.unique(np.asarray(builder.gate_idx)), gates, replace=False):
+        vals[int(c)] = int(rng.integers(1, 1 << 62)) * int(rng.integers(1, 1 << 62)) % p
+    for i, j in enumerate(rng.choice(len(builder.lookups), lookups, replace=False)):
+        cell, bits = builder.lookups[int(j)]
+        vals[cell] = (1 << bits, 1 << 31 | 5, 1 << 63 | 1)[i % 3]
+    return vals
+
+
+def batched_violations(compiled, wb, device_arrays) -> tuple:
+    """Per-instance (gate, lookup) violation counts, (B,) each, of a (B, W, 8)
+    standard-form witness batch: the witness into Montgomery form (one K1
+    launch), one ``eval_gates`` and one ``eval_lookup`` per bit width over
+    the whole batch, as bench.py's ``check_all``."""
+    import torch
+
+    from halo2_rsa_tpu_torch.circuit import checker
+    from halo2_rsa_tpu_torch.fields import vecfield
+
+    gate_idx, coef, lookups = device_arrays
+    fc = compiled.fc
+    gates = (~checker.eval_gates(fc, gate_idx, coef, vecfield.to_mont(fc, wb))).sum(-1)
+    lk = torch.zeros_like(gates)
+    for bits, idx in lookups:
+        lk = lk + (~checker.eval_lookup(wb[:, idx], bits)).sum(-1)
+    return gates, lk
+
+
+def phase_checker(report, kernels, flagship):
+    """[10 checker] The constraint checker on the card: the flagship's
+    ``Pkcs1v15Circuit.check()`` and a seeded corruption of its witness
+    against the same functions on the CPU; then BASELINE config #1 (bench.py
+    :34-118), 256 witnesses checked in one batched pass, a seeded corruption
+    of some instances against the CPU's counts, and the pass timed with CUDA
+    events; K1 at the checker's shape, bitwise and queued."""
+    import numpy as np
+    import torch
+
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.circuit import checker
+    from halo2_rsa_tpu_torch.fields import cuda_mont
+
+    smi = report["device"]["smi"]
+    out = {}
+    circ, compiled = flagship["circ"], flagship["compiled"]
+    cuda_mont.LAUNCHES["mont_mul"] = 0
+    t0 = time.perf_counter()
+    res = circ.check()
+    out["flagship_check_s"] = time.perf_counter() - t0
+    k1_flagship = cuda_mont.LAUNCHES["mont_mul"]
+    if res != {"ok": True, "gate_violations": 0, "lookup_violations": 0, "instance_ok": True}:
+        raise AssertionError(f"the flagship's check on the card: {res}")
+    if k1_flagship == 0:
+        raise AssertionError("K1 was never launched by the flagship's check")
+    rng = np.random.default_rng(29)
+    bad = checker.witness_limbs(corrupt(circ.builder, rng))
+    card = checker.check(compiled, bad)
+    cpu = checker.check(compiled, bad, device="cpu")
+    rows = checker.failing_gates(compiled, bad, limit=1 << 20)
+    if card != cpu or rows != checker.failing_gates(compiled, bad, limit=1 << 20, device="cpu"):
+        raise AssertionError(f"the flagship's corrupted check differs: card {card}, cpu {cpu}")
+    if card["ok"] or not card["lookup_violations"]:
+        raise AssertionError(f"the corrupted flagship witness passed: {card}")
+    report_card = checker.explain(circ.builder, bad, limit=20)
+    if report_card != checker.explain(circ.builder, bad, limit=20, device="cpu"):
+        raise AssertionError("explain differs between the card and the CPU")
+    out.update(flagship_check=res, flagship_k1_launches=k1_flagship, flagship_corrupted=card,
+               flagship_failing_rows=len(rows))
+    line(f"[10 checker] flagship Pkcs1v15Circuit.check() on the card: ok, 0 gate and 0 lookup "
+         f"violations, instance ok ({out['flagship_check_s']:.3f} s, {k1_flagship} K1 launches); "
+         f"corrupted witness: {card['gate_violations']} gate / {card['lookup_violations']} lookup "
+         f"violations, failing_gates ({len(rows)} rows) and explain equal to the CPU's | {smi}")
+
+    # BASELINE config #1, batched
+    t0 = time.perf_counter()
+    builders = config1_builders()
+    c1 = checker.compile_circuit(builders[0])
+    out["config1_build_s"] = time.perf_counter() - t0
+    w4 = np.stack([checker.witness_limbs(b) for b in builders])
+    w = np.tile(w4, (CHECK_BATCH // 4, 1, 1))
+    bad_ids = sorted(int(i) for i in rng.choice(CHECK_BATCH, 6, replace=False))
+    wbad = w.copy()
+    for i, inst in enumerate(bad_ids):
+        b = builders[inst % 4]
+        wbad[inst] = checker.witness_limbs(corrupt(b, rng, gates=i % 3 + 1, lookups=i % 2 + 1))
+
+    def device_arrays(dev):
+        idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
+        coef = torch.from_numpy(c1.coef_table).to(dev)[idx(c1.gate_coef_id)]
+        return idx(c1.gate_idx), coef, [(bits, idx(i)) for bits, i in c1.lookup_groups]
+
+    dev = device_arrays("cuda")
+    wb = torch.from_numpy(w).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mont.LAUNCHES["mont_mul"] = 0
+    gates, lk = batched_violations(c1, wb, dev)
+    torch.cuda.synchronize()
+    k1_per_check = cuda_mont.LAUNCHES["mont_mul"]
+    if int(gates.sum()) or int(lk.sum()):
+        raise AssertionError("a valid config #1 instance has violations on the card")
+    if k1_per_check == 0:
+        raise AssertionError("K1 was never launched by the batched check")
+    g_bad, l_bad = batched_violations(c1, torch.from_numpy(wbad).cuda(), dev)
+    g_bad, l_bad = g_bad.cpu().tolist(), l_bad.cpu().tolist()
+    for inst in range(CHECK_BATCH):
+        if inst in bad_ids:
+            want = checker.check(c1, wbad[inst], device="cpu")
+            got = (g_bad[inst], l_bad[inst])
+            if got != (want["gate_violations"], want["lookup_violations"]) or want["ok"]:
+                raise AssertionError(f"config #1 instance {inst}: card {got}, cpu {want}")
+        elif g_bad[inst] or l_bad[inst]:
+            raise AssertionError(f"config #1 instance {inst} (not corrupted) has violations")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(CHECK_ITERS):
+        gates, lk = batched_violations(c1, wb, dev)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / CHECK_ITERS
+    ms = start.elapsed_time(end) / CHECK_ITERS
+    if int(gates.sum()) or int(lk.sum()):
+        raise AssertionError("a valid config #1 instance has violations on the card")
+    products = CHECK_BATCH * c1.num_gates
+    out.update(
+        config1=dict(bits=CHECK_BITS, batch=CHECK_BATCH, gate_rows=int(c1.num_gates),
+                     witness=int(c1.num_witness), lookups=int(c1.num_lookups),
+                     corrupted=bad_ids, corrupted_counts=[[g_bad[i], l_bad[i]] for i in bad_ids],
+                     iters=CHECK_ITERS, ms_per_batch=ms, wall_ms_per_batch=wall * 1e3,
+                     checks_per_s=CHECK_BATCH / (ms / 1e3), k1_launches_per_check=k1_per_check,
+                     k1_products_per_launch=[CHECK_BATCH * c1.num_witness, products],
+                     peak_mem_bytes=torch.cuda.max_memory_allocated(), build_s=out["config1_build_s"]))
+    r1 = out["config1"]
+    line(f"[10 checker] config #1 (mul_mod-2048, {r1['gate_rows']} gate rows, {r1['witness']} "
+         f"witness cells, {r1['lookups']} lookups) batch {CHECK_BATCH}: every instance 0 "
+         f"violations; {len(bad_ids)} corrupted instances' gate/lookup counts "
+         f"{r1['corrupted_counts']} equal the CPU's")
+    line(f"[10 checker] config #1 batched check: {ms:.3f} ms per batch of {CHECK_BATCH} (CUDA "
+         f"events, {CHECK_ITERS} warm iterations; host wall {wall * 1e3:.3f} ms) = "
+         f"{r1['checks_per_s']:.1f} checks/s | K1 {k1_per_check} launches per check, "
+         f"{CHECK_BATCH} x {c1.num_witness} products (to_mont) and {CHECK_BATCH} x "
+         f"{c1.num_gates} = {products} (gates) | peak memory "
+         f"{r1['peak_mem_bytes'] / 2**30:.2f} GiB | {smi}")
+
+    # K1 at the checker's shape: 0 launches per warm prove
+    fc = c1.fc
+    a = mont_layout.random_elements(fc, products, 33, "cuda")
+    b = mont_layout.random_elements(fc, products, 34, "cuda")
+    err = _max_abs_err(cuda_mont.mont_mul(fc, a, b), cuda_mont.mont_mul_plain(fc, a, b))
+    if err:
+        raise AssertionError("K1 at the checker's shape differs from its plain version")
+    row = dict(kind="checker", n=products, launches_per_warm_prove=0, max_abs_err=err,
+               ms=queued_ms(lambda v: cuda_mont.mont_mul(fc, v, b), a, QUEUED_ITERS))
+    row.update(shape_bound(report, *_k1_part(report["sass"], row)))
+    report["k1"]["shapes"].append(row)
+    line(f"[10 checker] K1 at the checker's shape ({products} products): bitwise equal | card "
+         f"{row['ms']:.4f} ms vs bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+         f"{row['bound_ms'] / row['ms'] * 100:.1f} % of bound | 0 launches per warm prove")
+    report["checker"] = out
 
 
 def main() -> int:
@@ -1368,14 +1650,16 @@ def main() -> int:
     phase_build(report)
     phase_parity(report, kernels)
     phase_golden(report)
-    phase_flagship(report, kernels)
+    flagship = phase_flagship(report, kernels)
     _empty_launch(report)
+    phase_k1(report, kernels)
     phase_k2(report, kernels)
     phase_k3(report, kernels)
     phase_k4(report, kernels)
     phase_p1(report, kernels)
     phase_p2(report, kernels)
     phase_bounds(report, kernels)
+    phase_checker(report, kernels, flagship)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -4,8 +4,9 @@ Counterpart of ``halo2_rsa_tpu/pipelines.py``: the PKCS#1 v1.5 verification
 circuit (with SHA-256 in the circuit, or on a pre-hashed digest — the
 SHA-disabled flagship shape) and a signing fixture. ``sign_fixture`` is plain
 Python (seeded Miller–Rabin primes, EMSA-PKCS1-v1_5 over SHA-256), so
-nothing here needs the ``cryptography`` package. The constraint check
-(``check``) waits for the device checker's port.
+nothing here needs the ``cryptography`` package. Each instance can be
+checked with the constraint checker (``check``, on the card unless the caller
+asks for the CPU) and proven/verified with the PLONK-KZG backend.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ class Pkcs1v15Circuit:
                 bits, dummy_pk.n, 0, msg=b"\x00" * msg_len, expose_public=expose_public
             )
         return cls.build(bits, dummy_pk.n, 0, hashed_msg=0, expose_public=expose_public)
+
+    def check(self, device="cuda") -> dict:
+        """MockProver-analog constraint check on ``device``."""
+        return checker.run(self.builder, self.public_inputs, device=device)
 
     def compile(self):
         return checker.compile_circuit(self.builder)

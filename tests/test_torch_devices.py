@@ -3,12 +3,17 @@ CPU: called without ``device`` on a host with no card, each raises instead
 of returning CPU tensors (``plonk.verify`` too, rather than rejecting the
 proof). With a card these calls would work, so the test skips there."""
 
+import tempfile
+
 import pytest
 import torch
 
-from halo2_rsa_tpu_torch import convert
+from halo2_rsa_tpu_torch import convert, golden
+from halo2_rsa_tpu_torch.circuit import checker
 from halo2_rsa_tpu_torch.fields import ALL_FIELDS, vecfield
+from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit
 from halo2_rsa_tpu_torch.prover import curve, g1_vec, kzg, msm, plonk
+from halo2_rsa_tpu_torch.utils import serialization
 
 
 class _RefSRS:
@@ -23,6 +28,16 @@ class _RefSRS:
         self.g2_tau = curve.G2_GEN
 
 
+def _arith():
+    b, pubs = golden.build_circuit("arith_k5")
+    return b, pubs, checker.compile_circuit(b), checker.witness_limbs(b)
+
+
+def _load_or_keygen():
+    with tempfile.TemporaryDirectory() as d:
+        serialization.load_or_keygen(_arith()[2], 5, d)
+
+
 ENTRY_POINTS = {
     "kzg.setup": lambda: kzg.setup(4, tau=5),
     "kzg.fixed_base_mul_batch": lambda: kzg.fixed_base_mul_batch([1, 2]),
@@ -35,6 +50,12 @@ ENTRY_POINTS = {
     "vecfield.pow_series": lambda: vecfield.pow_series(vecfield.consts(ALL_FIELDS[0]), 3, 4),
     "g1_vec.identity": lambda: g1_vec.identity((2,)),
     "g1_vec.points_to_device": lambda: g1_vec.points_to_device([curve.G1_GEN, None]),
+    "checker.check": lambda: checker.check(*_arith()[2:]),
+    "checker.run": lambda: checker.run(_arith()[0]),
+    "checker.failing_gates": lambda: checker.failing_gates(*_arith()[2:]),
+    "checker.explain": lambda: checker.explain(_arith()[0]),
+    "Pkcs1v15Circuit.check": lambda: Pkcs1v15Circuit(*_arith()[:2], bits=0).check(),
+    "serialization.load_or_keygen": _load_or_keygen,
 }
 
 
