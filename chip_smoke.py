@@ -633,7 +633,79 @@ def phase_flagship(report, kernels):
         kernels[key]["launches_per_warm_prove"] = per_prove[key]
         if v == 0:
             raise AssertionError(f"{key} was never launched on the flagship path")
+    f["keys"] = _key_artifacts(report, circ, compiled, k, srs, pk, vk)
     return dict(circ=circ, compiled=compiled)
+
+
+KEY_SEED = 41  # the rng of the proves that compare generated and loaded keys
+
+
+def _key_artifacts(report, circ, compiled, k, srs, pk, vk) -> dict:
+    """The flagship's SRS, pk and vk saved under a fresh directory in .keys/
+    and loaded back on the card: a prove from the loaded keys must equal one
+    from the generated keys with the same rng, and the loaded vk must verify
+    it. Then ``load_or_keygen`` twice on another fresh directory: generated,
+    then loaded, with the same proof bytes. The directory is removed."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import plonk
+    from halo2_rsa_tpu_torch.utils import serialization as ser
+
+    def prove(key):
+        return plonk.prove(key, circ.builder.values, circ.public_inputs,
+                           rng=random.Random(KEY_SEED))
+
+    keys_dir = os.path.join(HERE, ".keys")
+    os.makedirs(keys_dir, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_", dir=keys_dir)
+    out = {}
+    try:
+        paths = {name: os.path.join(d, name) for name in ("srs.npz", "pk.npz", "vk.json")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ser.save_srs(srs, paths["srs.npz"])
+        ser.save_pk(pk, paths["pk.npz"])
+        ser.save_vk(vk, paths["vk.json"])
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = {name: os.path.getsize(path) for name, path in paths.items()}
+        t0 = time.perf_counter()
+        srs2 = ser.load_srs(paths["srs.npz"])
+        pk2 = ser.load_pk(paths["pk.npz"], srs2)
+        vk2 = ser.load_vk(paths["vk.json"])
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        if dataclasses.asdict(vk2) != dataclasses.asdict(vk):
+            raise AssertionError("the vk loaded from its file differs from the generated vk")
+        want = prove(pk)
+        if prove(pk2) != want:
+            raise AssertionError("the proof from the loaded keys differs from the generated keys'")
+        if not plonk.verify(vk2, want, circ.public_inputs):
+            raise AssertionError("the loaded vk does not verify the flagship's proof")
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, pk3, _, loaded = ser.load_or_keygen(compiled, k, os.path.join(d, "fresh"), tau=777)
+            torch.cuda.synchronize()
+            runs.append(dict(loaded=loaded, seconds=time.perf_counter() - t0))
+            if prove(pk3) != want:
+                raise AssertionError(f"load_or_keygen (loaded={loaded}): the proof differs")
+        if [r["loaded"] for r in runs] != [False, True]:
+            raise AssertionError(f"load_or_keygen on a fresh directory: {runs}")
+        out["load_or_keygen"] = runs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    line(f"[5 keys] SRS + pk + vk saved in {out['save_s']:.3f} s "
+         f"({sum(out['file_bytes'].values()) / 2**20:.1f} MiB), loaded back in {out['load_s']:.3f} s; "
+         f"the proof from the loaded keys equals the generated keys' byte for byte and the "
+         f"loaded vk verifies it | load_or_keygen on a fresh directory: generated "
+         f"{runs[0]['seconds']:.3f} s, then loaded {runs[1]['seconds']:.3f} s, same proof bytes | "
+         f"{report['device']['smi']}")
+    return out
 
 
 def _calls_of_one_prove(timed_prove, per_prove) -> dict:

@@ -6,7 +6,9 @@ marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
 The argument checks, the CPU dispatch, the SASS loop split and a limb-level
 model of the lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's
-steps on it run everywhere.
+steps on it run everywhere. Two modules whose products run through K1 are
+checked on the card too: the constraint checker against itself on the CPU,
+and the key artifacts saved and loaded back on the card.
 """
 
 import os
@@ -792,3 +794,73 @@ def test_probe_wrappers_reject_bad_arguments(cuda):
     off = torch.zeros(8 * 64 + 1, dtype=torch.int32, device=cuda)[1:].view(64, 8)
     with pytest.raises(ValueError):
         mont_layout.mont_mul_staged(fc, off, off)  # 4 bytes past a 16-byte boundary
+
+
+def _mul_mod_builder(bits: int = 256):
+    from halo2_rsa_tpu_torch.bigint import BigIntChip
+    from halo2_rsa_tpu_torch.circuit import Builder
+    from halo2_rsa_tpu_torch.fields import BN254_FR
+
+    rng = random.Random(0)
+    n_v = rng.getrandbits(bits) | (1 << (bits - 1))
+    a_v, b_v = rng.randrange(n_v), rng.randrange(n_v)
+    b = Builder(BN254_FR)
+    chip = BigIntChip(b, 64, bits)
+    res = chip.mul_mod(chip.assign_integer(a_v), chip.assign_integer(b_v), chip.assign_integer(n_v))
+    chip.assert_equal_fresh(res, chip.assign_integer(a_v * b_v % n_v))
+    return b
+
+
+@pytest.mark.cuda
+def test_checker_on_the_card_matches_the_cpu(cuda):
+    """The constraint checker's products go through K1 on the card; its
+    counts, failing rows and report equal the CPU's, on a valid witness and
+    on one with gate and lookup cells changed (a limb with bit 31 set)."""
+    from halo2_rsa_tpu_torch.circuit import checker
+
+    b = _mul_mod_builder()
+    compiled = checker.compile_circuit(b)
+    before = cuda_mont.LAUNCHES["mont_mul"]
+    assert checker.run(b) == checker.run(b, device="cpu") == dict(
+        ok=True, gate_violations=0, lookup_violations=0)
+    assert cuda_mont.LAUNCHES["mont_mul"] > before
+    vals = list(b.values)
+    vals[int(compiled.gate_idx[7, 0])] += 1
+    for j, new in ((0, 1 << 31 | 5), (5, 1 << 63 | 1)):
+        vals[b.lookups[j][0]] = new
+    w = checker.witness_limbs(vals)
+    got = checker.check(compiled, w)
+    assert got == checker.check(compiled, w, device="cpu")
+    assert got["gate_violations"] > 0 and got["lookup_violations"] >= 2
+    assert checker.failing_gates(compiled, w, 100) == checker.failing_gates(
+        compiled, w, 100, device="cpu")
+    assert checker.explain(b, w, 40) == checker.explain(b, w, 40, device="cpu")
+
+
+@pytest.mark.cuda
+def test_keys_round_trip_on_the_card(cuda, tmp_path):
+    """Keys made on the card, saved and loaded back there, equal the
+    generated ones and prove the golden case's bytes."""
+    from halo2_rsa_tpu_torch import golden
+    from halo2_rsa_tpu_torch.circuit import checker
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+    from halo2_rsa_tpu_torch.utils import serialization as ser
+
+    meta, want = golden.load("arith_k5")
+    b, pubs = golden.build_circuit("arith_k5")
+    srs = kzg.setup(meta["srs_n"], tau=meta["tau"], device=cuda)
+    pk, vk = plonk.keygen(checker.compile_circuit(b), srs, k=meta["k"])
+    ser.save_srs(srs, str(tmp_path / "srs"))
+    ser.save_pk(pk, str(tmp_path / "pk"))
+    ser.save_vk(vk, str(tmp_path / "vk.json"))
+    srs2 = ser.load_srs(str(tmp_path / "srs.npz"))
+    pk2 = ser.load_pk(str(tmp_path / "pk.npz"), srs2)
+    assert pk2.device.type == "cuda"
+    for key in ("id_vals", "sigma_vals", "fixed_polys", "sigma_polys", "fixed_ext",
+                "sigma_ext", "l0_ext", "x_ext", "van_inv"):
+        assert torch.equal(getattr(pk2, key), getattr(pk, key)), key
+    for c2, c in zip(srs2.g1_powers, srs.g1_powers):
+        assert torch.equal(c2, c)
+    proof = plonk.prove(pk2, b.values, pubs, rng=random.Random(meta["seed"]))
+    assert proof == want
+    assert plonk.verify(ser.load_vk(str(tmp_path / "vk.json")), proof, pubs)
