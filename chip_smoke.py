@@ -18,8 +18,9 @@ the script exits non-zero without its final line):
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
 6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove; the shapes of every K2, K3 and K4 launch of one more
-   warm prove (``chip_smoke.json``: ``g1_calls_per_warm_prove``); then K2
+   one warm prove; the shapes of every K1-K4 launch of one more warm prove
+   (``chip_smoke.json``: ``k1_calls_per_warm_prove``,
+   ``g1_calls_per_warm_prove``); then K1 at each of its shapes, K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
    2^16 points with C = 1, K3 at its shapes and at 2^16 points, its row
@@ -43,7 +44,23 @@ the script exits non-zero without its final line):
    opcodes and the ALU pipe's, 64 lanes per SM each, and all instructions
    over 128 issued per SM (K2 and K4: the loop body once per add or
    doubling, the rest once per thread). P1's best measured integer rate is
-   reported beside it, as a reading.
+   reported beside it, as a reading. The rank of each kernel, launches per
+   warm prove x (ms - bound ms), summed over its path shapes (K1's in
+   buckets of products per launch);
+10. the constraint checker on the card: the flagship's
+    ``Pkcs1v15Circuit.check()`` (0 violations, K1 launched) and a seeded
+    corruption of its witness against the CPU's counts, ``failing_gates``
+    and ``explain``; BASELINE config #1 (bench.py's mul_mod-2048 at batch
+    256) checked in one batched pass, a seeded corruption of six instances
+    against the CPU's per-instance counts, the pass timed (checks/s), and K1
+    at the checker's shape;
+11. RSA-1024 + SHA-256 of a 64 B message (k=17, 90,442 gates): build,
+    check, set-up, keygen, one prove and verify on the card, a wrong public
+    input rejected, every kernel launched on that path.
+
+Phase 5 also saves the flagship's keys (``utils.serialization``) under
+``.keys/``, loads them back, proves byte-equal from them and runs
+``load_or_keygen`` twice on a fresh directory (generated, then loaded).
 
 Then it prints the kernels' JSON line (each row also names its ``shape``
 and its ``timing``: ``queued`` on every row, CUDA events over launches
@@ -529,12 +546,35 @@ def phase_golden(report):
     report["golden"] = out
 
 
+def reset_launch_counts() -> None:
+    from halo2_rsa_tpu_torch.fields import cuda_mont
+    from halo2_rsa_tpu_torch.prover import cuda_g1
+
+    for counts in (cuda_mont.LAUNCHES, cuda_g1.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def launch_counts() -> dict:
+    """K1-K4's launch counters, by kernels-line row."""
+    from halo2_rsa_tpu_torch.fields import cuda_mont
+    from halo2_rsa_tpu_torch.prover import cuda_g1
+
+    return {
+        "K1": cuda_mont.LAUNCHES["mont_mul"],
+        "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
+        "K3": cuda_g1.LAUNCHES["g1_add"],
+        "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
+        "K3-splice": cuda_g1.LAUNCHES["g1_splice"],
+        "K4": cuda_g1.LAUNCHES["g1_double"],
+    }
+
+
 def phase_flagship(report, kernels):
     import torch
 
-    from halo2_rsa_tpu_torch.fields import cuda_mont
     from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
-    from halo2_rsa_tpu_torch.prover import cuda_g1, kzg, plonk
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
     from halo2_rsa_tpu_torch.utils.profiling import Phases
 
     bits = 1024
@@ -543,9 +583,7 @@ def phase_flagship(report, kernels):
     hashed = int.from_bytes(hashlib.sha256(msg).digest(), "big")
 
     # launch counts cover the main path only (parity launches excluded)
-    for counts in (cuda_mont.LAUNCHES, cuda_g1.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    reset_launch_counts()
     f = {}
     t0 = time.perf_counter()
     circ = Pkcs1v15Circuit.build(bits, n, sig, hashed_msg=hashed)
@@ -575,24 +613,14 @@ def phase_flagship(report, kernels):
         torch.cuda.synchronize()
         return proof, time.perf_counter() - t, ph
 
-    def counts_now():
-        return {
-            "K1": cuda_mont.LAUNCHES["mont_mul"],
-            "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
-            "K3": cuda_g1.LAUNCHES["g1_add"],
-            "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
-            "K3-splice": cuda_g1.LAUNCHES["g1_splice"],
-            "K4": cuda_g1.LAUNCHES["g1_double"],
-        }
-
     proof, f["prove_cold_s"], ph = timed_prove()
     f["phases_cold"] = dict(ph.times)
     line(f"[5 flagship] cold prove {f['prove_cold_s']:.3f} s, {len(proof)} B")
     warm, phases = [], []
     for _ in range(WARM_PROVES):
-        before = counts_now()
+        before = launch_counts()
         _, dt, ph = timed_prove()
-        per_prove = {k_: v - before[k_] for k_, v in counts_now().items()}
+        per_prove = {k_: v - before[k_] for k_, v in launch_counts().items()}
         warm.append(dt)
         phases.append(ph.times)
     f["prove_warm_s"] = warm
@@ -618,7 +646,7 @@ def phase_flagship(report, kernels):
          f"{sum(warm) / len(warm):.3f} max {max(warm):.3f} s | phases(mean s) {ph_txt} | "
          f"verify {f['verify_s']:.3f} s ok, wrong public input rejected, proof 2272 B")
 
-    counts = counts_now()
+    counts = launch_counts()
     f["launches"] = counts
     f["launches_per_warm_prove"] = per_prove
     calls = _calls_of_one_prove(timed_prove, per_prove)
@@ -1713,6 +1741,76 @@ def phase_checker(report, kernels, flagship):
     report["checker"] = out
 
 
+SHA_BITS, SHA_MSG_LEN = 1024, 64
+
+
+def phase_sha(report, kernels):
+    """[11 sha] RSA-1024 + SHA-256 of a 64 B message in the circuit (k=17;
+    halo2-rsa ``benches/bench.rs:349-367``), as ``scripts/time_torch_flagship.py
+    1024 --sha 64`` builds it: build, check on the card, set-up, keygen, one
+    prove, verify, a wrong public input rejected, proof 2,272 B. Its MSMs
+    are the first of this script with more points than ``msm._SEG`` (the
+    point-axis segments). Every kernel of the flagship's path must launch on
+    this path too (counts set to 0 before it, read after)."""
+    import torch
+
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+
+    rng = random.Random(7)
+    msg = bytes(rng.randrange(256) for _ in range(SHA_MSG_LEN))
+    n, sig = sign_fixture(SHA_BITS, msg, rng=random.Random(7))
+    out = {}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    circ = Pkcs1v15Circuit.build(SHA_BITS, n, sig, msg=msg)
+    compiled = circ.compile()
+    out["build_compile_s"] = time.perf_counter() - t0
+    k = max(compiled.num_gates + len(compiled.instance_idx),
+            compiled.num_witness // 5 + 1).bit_length()
+    out.update(k=k, gates=int(compiled.num_gates))
+    if k != 17:
+        raise AssertionError(f"RSA-1024 SHA-64 picked k={k}, expected 17")
+    t0 = time.perf_counter()
+    check = circ.check()
+    out["check_s"] = time.perf_counter() - t0
+    if not check["ok"]:
+        raise AssertionError(f"RSA-1024 SHA-64 check on the card: {check}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    srs, out["setup_s"] = timed(lambda: kzg.setup((1 << k) + plonk.BLIND, tau=777))
+    (pk, vk), out["keygen_s"] = timed(lambda: plonk.keygen(compiled, srs, k=k))
+    proof, out["prove_s"] = timed(lambda: plonk.prove(pk, circ.builder.values, circ.public_inputs))
+    ok, out["verify_s"] = timed(lambda: plonk.verify(vk, proof, circ.public_inputs))
+    if not ok:
+        raise AssertionError("the RSA-1024 SHA-64 proof does not verify")
+    bad = list(circ.public_inputs)
+    bad[0] += 1
+    if plonk.verify(vk, proof, bad):
+        raise AssertionError("RSA-1024 SHA-64: verify accepted a wrong public input")
+    if len(proof) != 2272:
+        raise AssertionError(f"RSA-1024 SHA-64 proof is {len(proof)} B, expected 2272")
+    out["launches"] = launch_counts()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    report["sha"] = out
+    for key, v in out["launches"].items():
+        if v == 0:
+            raise AssertionError(f"{key} was never launched on the RSA-1024 SHA-64 path")
+    line(f"[11 sha] RSA-1024 SHA-256 of 64 B: {out['gates']} gates, k={k}, build+compile "
+         f"{out['build_compile_s']:.2f} s, check {out['check_s']:.3f} s ok, setup "
+         f"{out['setup_s']:.2f} s, keygen {out['keygen_s']:.2f} s, prove {out['prove_s']:.3f} s, "
+         f"verify {out['verify_s']:.3f} s ok, wrong public input rejected, proof 2272 B, peak "
+         f"{out['peak_mem_bytes'] / 2**30:.2f} GiB | launches " + ", ".join(
+             f"{k_}={v}" for k_, v in out["launches"].items()) + f" | {report['device']['smi']}")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     report: dict = {}
@@ -1732,6 +1830,7 @@ def main() -> int:
     phase_p2(report, kernels)
     phase_bounds(report, kernels)
     phase_checker(report, kernels, flagship)
+    phase_sha(report, kernels)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
