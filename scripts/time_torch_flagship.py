@@ -128,8 +128,11 @@ def main() -> int:
     finally:
         for u in undo:
             u()
+    fp = serialization.circuit_fingerprint(compiled)
     res.update(keys_loaded=loaded, srs_setup_s=times.get("setup"), keygen_s=times.get("keygen"),
-               peak_mem_keys_bytes=torch.cuda.max_memory_allocated())
+               peak_mem_keys_bytes=torch.cuda.max_memory_allocated(), key_file_bytes={
+                   name: os.path.getsize(os.path.join(keys_dir, name))
+                   for name in (f"srs_k{k}_t777.npz", f"{fp}_k{k}_pk.npz")})
     log(f"keys {'loaded' if loaded else 'generated and saved'} in {res['keys_s']:.2f} s "
         f"(set-up {res['srs_setup_s']}, keygen {res['keygen_s']})")
 
