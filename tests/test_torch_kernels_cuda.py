@@ -796,29 +796,16 @@ def test_probe_wrappers_reject_bad_arguments(cuda):
         mont_layout.mont_mul_staged(fc, off, off)  # 4 bytes past a 16-byte boundary
 
 
-def _mul_mod_builder(bits: int = 256):
-    from halo2_rsa_tpu_torch.bigint import BigIntChip
-    from halo2_rsa_tpu_torch.circuit import Builder
-    from halo2_rsa_tpu_torch.fields import BN254_FR
-
-    rng = random.Random(0)
-    n_v = rng.getrandbits(bits) | (1 << (bits - 1))
-    a_v, b_v = rng.randrange(n_v), rng.randrange(n_v)
-    b = Builder(BN254_FR)
-    chip = BigIntChip(b, 64, bits)
-    res = chip.mul_mod(chip.assign_integer(a_v), chip.assign_integer(b_v), chip.assign_integer(n_v))
-    chip.assert_equal_fresh(res, chip.assign_integer(a_v * b_v % n_v))
-    return b
-
-
 @pytest.mark.cuda
 def test_checker_on_the_card_matches_the_cpu(cuda):
     """The constraint checker's products go through K1 on the card; its
-    counts, failing rows and report equal the CPU's, on a valid witness and
-    on one with gate and lookup cells changed (a limb with bit 31 set)."""
+    counts, failing rows and report equal the CPU's, on the golden
+    ``mul_mod`` circuit's witness and on a copy with gate and lookup cells
+    changed (a limb with bit 31 set)."""
+    from halo2_rsa_tpu_torch import golden
     from halo2_rsa_tpu_torch.circuit import checker
 
-    b = _mul_mod_builder()
+    b, _ = golden.build_circuit("mulmod_k10")
     compiled = checker.compile_circuit(b)
     before = cuda_mont.LAUNCHES["mont_mul"]
     assert checker.run(b) == checker.run(b, device="cpu") == dict(
