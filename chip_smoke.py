@@ -56,7 +56,12 @@ the script exits non-zero without its final line):
     at the checker's shape;
 11. RSA-1024 + SHA-256 of a 64 B message (k=17, 90,442 gates): build,
     check, set-up, keygen, one prove and verify on the card, a wrong public
-    input rejected, every kernel launched on that path.
+    input rejected, every kernel launched on that path, the shape of every
+    K1-K4 launch recorded (``chip_smoke.json``: ``sha.calls``); then each
+    shape the flagship's warm prove does not launch (the fixed-base set-up,
+    keygen, the checker, the MSM's point-axis segments, k=17's NTT stages)
+    and each kernel's largest held bitwise against its plain version, on the
+    inputs of a second run of the path (``sha.held``).
 
 Phase 5 also saves the flagship's keys (``utils.serialization``) under
 ``.keys/``, loads them back, proves byte-equal from them and runs
@@ -649,7 +654,7 @@ def phase_flagship(report, kernels):
     counts = launch_counts()
     f["launches"] = counts
     f["launches_per_warm_prove"] = per_prove
-    calls = _calls_of_one_prove(timed_prove, per_prove)
+    calls = _calls_of(timed_prove)
     f["k1_calls_per_warm_prove"] = calls.pop("K1")
     f["g1_calls_per_warm_prove"] = calls
     report["flagship"] = f
@@ -736,13 +741,25 @@ def _key_artifacts(report, circ, compiled, k, srs, pk, vk) -> dict:
     return out
 
 
-def _calls_of_one_prove(timed_prove, per_prove) -> dict:
-    """{kernel: [[shape..., launches], ...]} over one more warm prove, read
-    by pass-through wrappers around the K1-K4 wrappers (launch counts are
-    already taken): K1 (products,), K2 (rows, C), K3 (points,), K3-scan
-    (rows, L, 1 with the tree else 0), K3-splice (rows, buckets, npad,
-    nchunks), K4 (points, doublings). Each kernel's launches must add up to
-    its count over a warm prove."""
+def _copy(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return tuple(_copy(v) for v in x)
+    return x
+
+
+def _calls_of(run, keep=None) -> dict:
+    """{kernel: [[shape..., launches], ...]} over ``run()``, read by
+    pass-through wrappers around the K1-K4 wrappers: K1 (products,), K2
+    (rows, C), K3 (points,), K3-scan (rows, L, 1 with the tree else 0),
+    K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings). Each
+    kernel's launches must add up to its launch count over the same run.
+    Given ``keep`` (a dict), the first launch at each (kernel, shape) is
+    kept there as (its plain version, copies of its arguments and of its
+    output)."""
     from halo2_rsa_tpu_torch.fields import cuda_mont
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
@@ -771,25 +788,32 @@ def _calls_of_one_prove(timed_prove, per_prove) -> dict:
     real = {target: getattr(*target) for target in shape_of}
 
     def recorder(target):
-        key, shape = shape_of[target]
+        key, shape_fn = shape_of[target]
+        plain = getattr(target[0], target[1] + "_plain")
 
         def wrapped(*args, **kw):
-            calls[key][shape(*args, **kw)] += 1
-            return real[target](*args, **kw)
+            shape = shape_fn(*args, **kw)
+            calls[key][shape] += 1
+            out = real[target](*args, **kw)
+            if keep is not None and (key, shape) not in keep:
+                keep[key, shape] = (plain, _copy(args), dict(kw), _copy(out))
+            return out
 
         return wrapped
 
+    before = launch_counts()
     for target in shape_of:
         setattr(*target, recorder(target))
     try:
-        timed_prove()
+        run()
     finally:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
+    after = launch_counts()
     for key, hist in calls.items():
-        if sum(hist.values()) != per_prove[key]:
+        if sum(hist.values()) != after[key] - before[key]:
             raise AssertionError(f"{key} launches recorded {sum(hist.values())} differ from "
-                                 f"its count over a warm prove {per_prove[key]}")
+                                 f"its count over the same run {after[key] - before[key]}")
     return {key: [[*shape, n] for shape, n in sorted(hist.items())]
             for key, hist in calls.items()}
 
@@ -1744,6 +1768,56 @@ def phase_checker(report, kernels, flagship):
 SHA_BITS, SHA_MSG_LEN = 1024, 64
 
 
+def _size(shape) -> int:
+    """A recorded shape's elements: products, rows x C, points, rows x L,
+    rows x buckets, or points x doublings."""
+    return shape[0] * (shape[1] if len(shape) > 1 else 1)
+
+
+def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
+    """Each shape of ``hist`` (a path's launches, ``_calls_of``) that is not
+    in ``covered`` (the flagship's warm-prove shapes, which phase 6 holds),
+    and each kernel's largest, held bitwise against its plain version: on
+    the path's own inputs where a second run of the path kept its first
+    launch at that shape (``keep``); else, for K1 only (a table the first
+    run built and cached), on random BN254 Fr operands. Returns one row per
+    shape held."""
+    import torch
+
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    fc = vecfield.consts(BN254_FR)
+    out = []
+    for key, shapes in hist.items():
+        largest = max(shapes, key=_size)
+        for shape in sorted(s_ for s_ in shapes if s_ not in covered[key] or s_ == largest):
+            if (key, shape) in keep:
+                plain, args, kw, got = keep[key, shape]
+                inputs = "path"
+            elif key == "K1":
+                args = tuple(mont_layout.random_elements(fc, shape[0], seed, "cuda")
+                             for seed in (35, 36))
+                plain, args, kw, got = (cuda_mont.mont_mul_plain, (fc, *args), {},
+                                        cuda_mont.mont_mul(fc, *args))
+                inputs = "random"
+            else:
+                raise AssertionError(f"{key} at {shape} was launched by the first run of the "
+                                     f"path only")
+            t0 = time.perf_counter()
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"{key} at {shape} on the RSA-1024 SHA-64 path differs "
+                                     f"from its plain version")
+            out.append(dict(kernel=key, shape=list(shape), launches=shapes[shape],
+                            new=shape not in covered[key], largest=shape == largest,
+                            inputs=inputs, max_abs_err=err, plain_s=time.perf_counter() - t0))
+    return out
+
+
 def phase_sha(report, kernels):
     """[11 sha] RSA-1024 + SHA-256 of a 64 B message in the circuit (k=17;
     halo2-rsa ``benches/bench.rs:349-367``), as ``scripts/time_torch_flagship.py
@@ -1751,7 +1825,11 @@ def phase_sha(report, kernels):
     prove, verify, a wrong public input rejected, proof 2,272 B. Its MSMs
     are the first of this script with more points than ``msm._SEG`` (the
     point-axis segments). Every kernel of the flagship's path must launch on
-    this path too (counts set to 0 before it, read after)."""
+    this path too (counts set to 0 before it, read after), and the shape of
+    each launch is recorded (``_calls_of``). Then each shape that the
+    flagship's warm prove does not launch, and each kernel's largest, is
+    held bitwise against its plain version, on the inputs of a second run of
+    the path (``_hold_path_calls``)."""
     import torch
 
     from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
@@ -1772,33 +1850,38 @@ def phase_sha(report, kernels):
     out.update(k=k, gates=int(compiled.num_gates))
     if k != 17:
         raise AssertionError(f"RSA-1024 SHA-64 picked k={k}, expected 17")
-    t0 = time.perf_counter()
-    check = circ.check()
-    out["check_s"] = time.perf_counter() - t0
-    if not check["ok"]:
-        raise AssertionError(f"RSA-1024 SHA-64 check on the card: {check}")
+    bad = list(circ.public_inputs)
+    bad[0] += 1
 
-    def timed(fn):
+    def step(name, fn, timed):
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t
+        if timed:
+            out[name] = time.perf_counter() - t
+        return res
 
-    srs, out["setup_s"] = timed(lambda: kzg.setup((1 << k) + plonk.BLIND, tau=777))
-    (pk, vk), out["keygen_s"] = timed(lambda: plonk.keygen(compiled, srs, k=k))
-    proof, out["prove_s"] = timed(lambda: plonk.prove(pk, circ.builder.values, circ.public_inputs))
-    ok, out["verify_s"] = timed(lambda: plonk.verify(vk, proof, circ.public_inputs))
-    if not ok:
-        raise AssertionError("the RSA-1024 SHA-64 proof does not verify")
-    bad = list(circ.public_inputs)
-    bad[0] += 1
-    if plonk.verify(vk, proof, bad):
-        raise AssertionError("RSA-1024 SHA-64: verify accepted a wrong public input")
-    if len(proof) != 2272:
-        raise AssertionError(f"RSA-1024 SHA-64 proof is {len(proof)} B, expected 2272")
+    def path(timed=False):
+        check = step("check_s", circ.check, timed)
+        if not check["ok"]:
+            raise AssertionError(f"RSA-1024 SHA-64 check on the card: {check}")
+        srs = step("setup_s", lambda: kzg.setup((1 << k) + plonk.BLIND, tau=777), timed)
+        pk, vk = step("keygen_s", lambda: plonk.keygen(compiled, srs, k=k), timed)
+        proof = step("prove_s", lambda: plonk.prove(pk, circ.builder.values, circ.public_inputs),
+                     timed)
+        if not step("verify_s", lambda: plonk.verify(vk, proof, circ.public_inputs), timed):
+            raise AssertionError("the RSA-1024 SHA-64 proof does not verify")
+        if plonk.verify(vk, proof, bad):
+            raise AssertionError("RSA-1024 SHA-64: verify accepted a wrong public input")
+        if len(proof) != 2272:
+            raise AssertionError(f"RSA-1024 SHA-64 proof is {len(proof)} B, expected 2272")
+
+    # the path's shapes are recorded as it runs (a counter per launch)
+    calls = _calls_of(lambda: path(timed=True))
     out["launches"] = launch_counts()
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["calls"] = calls
     report["sha"] = out
     for key, v in out["launches"].items():
         if v == 0:
@@ -1809,6 +1892,31 @@ def phase_sha(report, kernels):
          f"verify {out['verify_s']:.3f} s ok, wrong public input rejected, proof 2272 B, peak "
          f"{out['peak_mem_bytes'] / 2**30:.2f} GiB | launches " + ", ".join(
              f"{k_}={v}" for k_, v in out["launches"].items()) + f" | {report['device']['smi']}")
+
+    # the path again, each shape's first launch copied; its launches are not
+    # the path's counts (they were read above)
+    keep = {}
+    t0 = time.perf_counter()
+    _calls_of(path, keep)
+    hist = {key: {tuple(c[:-1]): c[-1] for c in v} for key, v in calls.items()}
+    flag = report["flagship"]
+    covered = {key: {tuple(c[:-1]) for c in v} for key, v in flag["g1_calls_per_warm_prove"].items()}
+    covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
+    out["held"] = _hold_path_calls(keep, hist, covered)
+    del keep
+    out["held_s"] = time.perf_counter() - t0
+    for key in hist:
+        rows = [r for r in out["held"] if r["kernel"] == key]
+        kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
+                                          + [r["max_abs_err"] for r in rows])
+        big = max(hist[key], key=_size)
+        line(f"[11 sha] {key}: {len(hist[key])} shapes, {sum(hist[key].values())} launches; "
+             f"{sum(r['new'] for r in rows)} shapes not launched by the flagship's warm prove; "
+             f"{len(rows)} held bitwise against the plain version (each of those and the "
+             f"largest, {list(big)} x {hist[key][big]} launches), "
+             f"{sum(r['inputs'] == 'path' for r in rows)} of them on this path's own inputs")
+    line(f"[11 sha] the path again with first launches copied, and {len(out['held'])} shapes "
+         f"held: {out['held_s']:.1f} s")
 
 
 def main() -> int:

@@ -3,6 +3,8 @@
 Counterpart of ``halo2_rsa_tpu/utils/serialization.py``, in the same file
 format, so that each package loads the other's keys bit for bit: a plain npz
 (numpy) container + ints as little-endian byte blobs — no pickling of code.
+The port writes it uncompressed (``np.savez``; zlib took over 99 % of a
+compressed save), and ``np.load`` reads either kind.
 Limb arrays are stored in the reference layout, (..., 16) uint32 16-bit
 limbs (``vecfield.limbs_to_ref`` on save, ``convert.limbs`` on load); the
 file names (``srs_k{k}_t{tau}.npz``, ``{fingerprint}_k{k}_pk.npz``) and the
@@ -36,7 +38,8 @@ def _int_from_bytes(b) -> int:
     return int.from_bytes(bytes(b), "little")
 
 
-def save_srs(srs: kzg.SRS, path: str) -> None:
+def _srs_arrays(srs: kzg.SRS) -> dict:
+    """The SRS's npz arrays, on the host."""
     g1 = [vecfield.limbs_to_ref(c) for c in srs.g1_powers]
     g2t = np.frombuffer(
         b"".join(_int_to_bytes(v) for pair in srs.g2_tau for v in pair), np.uint8
@@ -44,9 +47,11 @@ def save_srs(srs: kzg.SRS, path: str) -> None:
     g2g = np.frombuffer(
         b"".join(_int_to_bytes(v) for pair in srs.g2_gen for v in pair), np.uint8
     )
-    np.savez_compressed(
-        path, n=srs.n, g1x=g1[0], g1y=g1[1], g1z=g1[2], g2_tau=g2t, g2_gen=g2g
-    )
+    return dict(n=srs.n, g1x=g1[0], g1y=g1[1], g1z=g1[2], g2_tau=g2t, g2_gen=g2g)
+
+
+def save_srs(srs: kzg.SRS, path: str) -> None:
+    np.savez(path, **_srs_arrays(srs))
 
 
 def load_srs(path: str, device="cuda") -> kzg.SRS:
@@ -120,12 +125,8 @@ def save_vk(vk, path: str) -> None:
         json.dump(_vk_doc(vk), f)
 
 
-def save_pk(pk, path: str) -> None:
-    """ProvingKey -> npz. The SRS is NOT embedded (it is its own artifact,
-    shared across circuits — pass it to :func:`load_pk`).
-
-    The extended-coset arrays (fixed_ext/sigma_ext/...) are NOT persisted;
-    :func:`load_pk` recomputes them from the coefficient polys."""
+def _pk_arrays(pk) -> dict:
+    """The ProvingKey's npz arrays, on the host (its JSON meta as bytes)."""
     arrays = {
         "wire_source": np.asarray(pk.wire_source),
         "id_vals": vecfield.limbs_to_ref(pk.id_vals),
@@ -143,9 +144,16 @@ def save_pk(pk, path: str) -> None:
         "g1_tail": [[str(p[0]), str(p[1])] if p is not None else None for p in pk.g1_tail],
         "vk": _vk_doc(pk.vk),
     }
-    np.savez_compressed(
-        path, meta=np.frombuffer(json.dumps(meta).encode(), np.uint8), **arrays
-    )
+    return dict(meta=np.frombuffer(json.dumps(meta).encode(), np.uint8), **arrays)
+
+
+def save_pk(pk, path: str) -> None:
+    """ProvingKey -> npz. The SRS is NOT embedded (it is its own artifact,
+    shared across circuits — pass it to :func:`load_pk`).
+
+    The extended-coset arrays (fixed_ext/sigma_ext/...) are NOT persisted;
+    :func:`load_pk` recomputes them from the coefficient polys."""
+    np.savez(path, **_pk_arrays(pk))
 
 
 def load_pk(path: str, srs: kzg.SRS) -> plonk.ProvingKey:
@@ -228,8 +236,6 @@ def load_or_keygen(compiled, k: int, keys_dir: str, tau: int = 777, device="cuda
     # k=17 SHA configs load ONE powers-of-tau artifact, like any two
     # halo2 circuits sharing a ParamsKZG file)
     srs_path = os.path.join(keys_dir, f"srs_k{k}_t{tau}.npz")
-    if not os.path.exists(srs_path) and os.path.exists(base + "_srs.npz"):
-        srs_path = base + "_srs.npz"  # legacy per-circuit artifact
     pk_path = base + "_pk.npz"
     if os.path.exists(srs_path) and os.path.exists(pk_path):
         srs = load_srs(srs_path, device)

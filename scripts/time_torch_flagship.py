@@ -54,6 +54,30 @@ def parse(argv):
     return bits, sha, opts["--keys"], opts["--json"]
 
 
+def build(bits: int, sha_len):
+    """The configuration's circuit, compiled, and its k (the JAX script's
+    rule); the message from ``random.Random(7)``."""
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
+
+    rng = random.Random(7)
+    msg = bytes(rng.randrange(256) for _ in range(sha_len if sha_len else 32))
+    n, sig = sign_fixture(bits, msg, rng=random.Random(7))
+    if sha_len is not None:
+        circ = Pkcs1v15Circuit.build(bits, n, sig, msg=msg)
+    else:
+        digest = hashlib.sha256(msg).digest()
+        circ = Pkcs1v15Circuit.build(bits, n, sig, hashed_msg=int.from_bytes(digest, "big"))
+    compiled = circ.compile()
+    k = max(compiled.num_gates + len(compiled.instance_idx),
+            compiled.num_witness // 5 + 1).bit_length()
+    return circ, compiled, k
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def timed_calls(mod, name: str, times: dict):
     """Wrap ``mod.name`` so that each call's seconds (synchronised on the
     card) land in ``times[name]``; returns a function that unwraps it."""
@@ -80,30 +104,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("time_torch_flagship: no CUDA device (torch.cuda.is_available() is False)")
         return 1
-    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
     from halo2_rsa_tpu_torch.prover import kzg, plonk
     from halo2_rsa_tpu_torch.utils import serialization
     from halo2_rsa_tpu_torch.utils.profiling import Phases
 
     bits, sha_len, keys_dir, json_out = parse(sys.argv[1:])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    rng = random.Random(7)
-    msg = bytes(rng.randrange(256) for _ in range(sha_len if sha_len else 32))
-    n, sig = sign_fixture(bits, msg, rng=random.Random(7))
-    digest = hashlib.sha256(msg).digest()
     res = {}
     torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
-    if sha_len is not None:
-        circ = Pkcs1v15Circuit.build(bits, n, sig, msg=msg)
-    else:
-        circ = Pkcs1v15Circuit.build(bits, n, sig, hashed_msg=int.from_bytes(digest, "big"))
-    compiled = circ.compile()
+    circ, compiled, k = build(bits, sha_len)
     res["build_compile_s"] = time.perf_counter() - t0
-    k = max(compiled.num_gates + len(compiled.instance_idx),
-            compiled.num_witness // 5 + 1).bit_length()
     res.update(k=k, gates=int(compiled.num_gates), witness_cells=int(compiled.num_witness),
                lookups=int(compiled.num_lookups))
     log(f"build+compile {res['build_compile_s']:.2f} s: {res['gates']} gates, "
@@ -170,7 +181,7 @@ def main() -> int:
 
     config = (f"pkcs1v15_rsa{bits}_sha{sha_len}B_k{k}" if sha_len is not None
               else f"pkcs1v15_rsa{bits}_sha_disabled_k{k}")
-    result = dict(config=config, device=torch.cuda.get_device_name(0), smi=smi, **res)
+    result = dict(config=config, device=torch.cuda.get_device_name(0), smi=smi(), **res)
     print(json.dumps(result), flush=True)
     if json_out:
         with open(json_out, "w") as f:
