@@ -1777,34 +1777,19 @@ def _size(shape) -> int:
 def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
     """Each shape of ``hist`` (a path's launches, ``_calls_of``) that is not
     in ``covered`` (the flagship's warm-prove shapes, which phase 6 holds),
-    and each kernel's largest, held bitwise against its plain version: on
-    the path's own inputs where a second run of the path kept its first
-    launch at that shape (``keep``); else, for K1 only (a table the first
-    run built and cached), on random BN254 Fr operands. Returns one row per
-    shape held."""
+    and each kernel's largest, held bitwise against its plain version on
+    the path's own inputs: those of the first launch at that shape in a
+    second run of the path (``keep``). Returns one row per shape held."""
     import torch
 
-    from halo2_rsa_tpu_torch.bench import mont_layout
-    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
-    from halo2_rsa_tpu_torch.fields.field import BN254_FR
-
-    fc = vecfield.consts(BN254_FR)
     out = []
     for key, shapes in hist.items():
         largest = max(shapes, key=_size)
         for shape in sorted(s_ for s_ in shapes if s_ not in covered[key] or s_ == largest):
-            if (key, shape) in keep:
-                plain, args, kw, got = keep[key, shape]
-                inputs = "path"
-            elif key == "K1":
-                args = tuple(mont_layout.random_elements(fc, shape[0], seed, "cuda")
-                             for seed in (35, 36))
-                plain, args, kw, got = (cuda_mont.mont_mul_plain, (fc, *args), {},
-                                        cuda_mont.mont_mul(fc, *args))
-                inputs = "random"
-            else:
+            if (key, shape) not in keep:
                 raise AssertionError(f"{key} at {shape} was launched by the first run of the "
                                      f"path only")
+            plain, args, kw, got = keep[key, shape]
             t0 = time.perf_counter()
             want = plain(*args, **kw)
             torch.cuda.synchronize()
@@ -1814,7 +1799,7 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
                                      f"from its plain version")
             out.append(dict(kernel=key, shape=list(shape), launches=shapes[shape],
                             new=shape not in covered[key], largest=shape == largest,
-                            inputs=inputs, max_abs_err=err, plain_s=time.perf_counter() - t0))
+                            max_abs_err=err, plain_s=time.perf_counter() - t0))
     return out
 
 
@@ -1912,9 +1897,8 @@ def phase_sha(report, kernels):
         big = max(hist[key], key=_size)
         line(f"[11 sha] {key}: {len(hist[key])} shapes, {sum(hist[key].values())} launches; "
              f"{sum(r['new'] for r in rows)} shapes not launched by the flagship's warm prove; "
-             f"{len(rows)} held bitwise against the plain version (each of those and the "
-             f"largest, {list(big)} x {hist[key][big]} launches), "
-             f"{sum(r['inputs'] == 'path' for r in rows)} of them on this path's own inputs")
+             f"{len(rows)} held bitwise against the plain version on this path's own inputs "
+             f"(each of those and the largest, {list(big)} x {hist[key][big]} launches)")
     line(f"[11 sha] the path again with first launches copied, and {len(out['held'])} shapes "
          f"held: {out['held_s']:.1f} s")
 
