@@ -12,15 +12,19 @@ the script exits non-zero without its final line):
    identity, P+P and P+(-P), K3 also on coordinates lifted by q, as its lazy
    core may hold them; K3's row scans at (128, 512) and (128, 255) with the
    halving tree, with 1, 2, 4 and 8 blocks per row; K3's bucket splice at
-   128 rows x 256 buckets over 2^15 points), all compared bitwise; K1 timed
-   there (K2's, K3's and K4's times are phase 6's);
+   128 rows x 256 buckets over 2^15 points; K1-pow, the exponentiation in
+   one launch, at 256 elements for exponents 0, 1, 2, p - 2 and a random
+   253-bit one over four fields), all compared bitwise; K1 timed there
+   (K2's, K3's and K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
 6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove; the shapes of every K1-K4 launch of one more warm prove
-   (``chip_smoke.json``: ``k1_calls_per_warm_prove``,
-   ``g1_calls_per_warm_prove``); then K1 at each of its shapes, K2
+   one warm prove (K1-pow exactly once: the one field inversion); the
+   shapes of every K1-K4 launch of one more warm prove (``chip_smoke.json``:
+   ``k1_calls_per_warm_prove``, ``k1_pow_calls_per_warm_prove``,
+   ``g1_calls_per_warm_prove``); then K1 at each of its shapes, K1-pow at
+   its shapes (the inversion) and at 2^14 elements, K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
    2^16 points with C = 1, K3 at its shapes and at 2^16 points, its row
@@ -165,6 +169,7 @@ def phase_device(report):
 # kernel key -> (SASS symbol, template arguments); P1's bodies are added below
 SASS_NAMES = {
     "K1": ("h2r_mont_mul_kernel", ()),
+    "K1-pow": ("h2r_mont_pow_kernel", ()),
     "K2": ("h2r_g1_scan_mixed_kernel", ()),
     "K3": ("h2r_g1_add_kernel", ()),
     "K3-scan": ("h2r_g1_scan_rows_kernel", (0,)),  # one block per row
@@ -292,6 +297,40 @@ def _parity_k1(report, kernels):
     )
     line(f"[3 parity] K1 mont_mul: 2^20 x 4 fields bitwise equal | card {ms:.4f} ms, "
          f"host-paced {host_ms:.4f} ms, plain {plain_ms:.3f} ms (bn254_fr, 2^20)")
+
+
+POW_N = 256  # K1-pow's parity shape: elements per field and exponent
+
+
+def _parity_pow(report, kernels):
+    """K1-pow against its plain version over every field at POW_N elements
+    (0, 1 and p - 1 among them) for exponents 0, 1, 2, p - 2 and a random
+    253-bit one, and against Python ints."""
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import ALL_FIELDS, cuda_mont, vecfield
+
+    rng = random.Random(13)
+    worst = 0
+    for field in ALL_FIELDS:
+        fc = vecfield.consts(field)
+        p = field.p
+        a = mont_layout.random_elements(fc, POW_N, 36, "cuda")
+        a[:3] = vecfield.from_ints(fc, [0, 1, p - 1], device="cuda")
+        for e in (0, 1, 2, p - 2, rng.getrandbits(253) | 1 << 252):
+            got = cuda_mont.mont_pow(fc, a, e)
+            err = _max_abs_err(got, cuda_mont.mont_pow_plain(fc, a, e))
+            xs = vecfield.to_ints(fc, a[:8])
+            if vecfield.to_ints(fc, got[:8]) != [pow(x, e, p) for x in xs]:
+                raise AssertionError(f"K1-pow over {field.name}, e = {e}, differs from Python ints")
+            if err:
+                raise AssertionError(f"K1-pow over {field.name}, e = {e}, differs from its plain "
+                                     f"version")
+            worst = max(worst, err)
+    kernels["K1-pow"] = dict(
+        name="mont_pow", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont_pow.cu",
+        replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", max_abs_err=worst, timing="queued")
+    line(f"[3 parity] K1-pow mont_pow: {POW_N} elements x 4 fields x exponents 0, 1, 2, p - 2 "
+         f"and a random 253-bit one bitwise equal to the plain version and to Python ints")
 
 
 def _test_points(n: int, device):
@@ -519,6 +558,7 @@ def _parity_splice(report, kernels):
 
 def phase_parity(report, kernels):
     _parity_k1(report, kernels)
+    _parity_pow(report, kernels)
     _parity_g1(report, kernels)
     _parity_scan(report, kernels)
     _parity_splice(report, kernels)
@@ -567,6 +607,7 @@ def launch_counts() -> dict:
 
     return {
         "K1": cuda_mont.LAUNCHES["mont_mul"],
+        "K1-pow": cuda_mont.LAUNCHES["mont_pow"],
         "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
         "K3": cuda_g1.LAUNCHES["g1_add"],
         "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
@@ -575,26 +616,33 @@ def launch_counts() -> dict:
     }
 
 
-def phase_flagship(report, kernels):
-    import torch
-
+def flagship_circuit() -> tuple:
+    """The flagship, RSA-1024 PKCS#1 v1.5 with SHA disabled, over a 32 B
+    message signed by ``sign_fixture`` (both from random.Random(7)), built
+    and compiled: (circuit, compiled, k)."""
     from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
-    from halo2_rsa_tpu_torch.prover import kzg, plonk
-    from halo2_rsa_tpu_torch.utils.profiling import Phases
 
     bits = 1024
     msg = bytes(random.Random(7).randrange(256) for _ in range(32))
     n, sig = sign_fixture(bits, msg, rng=random.Random(7))
     hashed = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+    circ = Pkcs1v15Circuit.build(bits, n, sig, hashed_msg=hashed)
+    compiled = circ.compile()
+    return circ, compiled, max(compiled.num_gates + 20, compiled.num_witness // 5 + 1).bit_length()
+
+
+def phase_flagship(report, kernels):
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+    from halo2_rsa_tpu_torch.utils.profiling import Phases
 
     # launch counts cover the main path only (parity launches excluded)
     reset_launch_counts()
     f = {}
     t0 = time.perf_counter()
-    circ = Pkcs1v15Circuit.build(bits, n, sig, hashed_msg=hashed)
-    compiled = circ.compile()
+    circ, compiled, k = flagship_circuit()
     f["build_compile_s"] = time.perf_counter() - t0
-    k = max(compiled.num_gates + 20, compiled.num_witness // 5 + 1).bit_length()
     f.update(k=k, gates=int(compiled.num_gates), witness=int(compiled.num_witness))
     line(f"[5 flagship] RSA-1024 SHA-disabled: {f['gates']} gates, k={k}, "
          f"build+compile {f['build_compile_s']:.2f} s")
@@ -656,6 +704,7 @@ def phase_flagship(report, kernels):
     f["launches_per_warm_prove"] = per_prove
     calls = _calls_of(timed_prove)
     f["k1_calls_per_warm_prove"] = calls.pop("K1")
+    f["k1_pow_calls_per_warm_prove"] = calls.pop("K1-pow")
     f["g1_calls_per_warm_prove"] = calls
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
@@ -714,6 +763,7 @@ def _key_artifacts(report, circ, compiled, k, srs, pk, vk) -> dict:
         if dataclasses.asdict(vk2) != dataclasses.asdict(vk):
             raise AssertionError("the vk loaded from its file differs from the generated vk")
         want = prove(pk)
+        out["proof_sha256"] = hashlib.sha256(want).hexdigest()
         if prove(pk2) != want:
             raise AssertionError("the proof from the loaded keys differs from the generated keys'")
         if not plonk.verify(vk2, want, circ.public_inputs):
@@ -732,6 +782,8 @@ def _key_artifacts(report, circ, compiled, k, srs, pk, vk) -> dict:
         out["load_or_keygen"] = runs
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    line(f"[5 keys] the flagship's proof from random.Random({KEY_SEED}): sha256 "
+         f"{out['proof_sha256']}")
     line(f"[5 keys] SRS + pk + vk saved in {out['save_s']:.3f} s "
          f"({sum(out['file_bytes'].values()) / 2**20:.1f} MiB), loaded back in {out['load_s']:.3f} s; "
          f"the proof from the loaded keys equals the generated keys' byte for byte and the "
@@ -752,19 +804,21 @@ def _copy(x):
 
 
 def _calls_of(run, keep=None) -> dict:
-    """{kernel: [[shape..., launches], ...]} over ``run()``, read by
-    pass-through wrappers around the K1-K4 wrappers: K1 (products,), K2
-    (rows, C), K3 (points,), K3-scan (rows, L, 1 with the tree else 0),
-    K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings). Each
-    kernel's launches must add up to its launch count over the same run.
+    """{kernel: [[shape..., calls], ...]} over ``run()``, read by
+    pass-through wrappers around the K1-K4 wrappers: K1 (products,), K1-pow
+    (elements, exponent bits), K2 (rows, C), K3 (points,), K3-scan (rows,
+    L, 1 with the tree else 0), K3-splice (rows, buckets, npad, nchunks), K4
+    (points, doublings); each call launches its kernel once. The launches
+    made inside the wrappers must add up to each kernel's launch count over
+    the same run.
     Given ``keep`` (a dict), the first launch at each (kernel, shape) is
     kept there as (its plain version, copies of its arguments and of its
     output)."""
     from halo2_rsa_tpu_torch.fields import cuda_mont
     from halo2_rsa_tpu_torch.prover import cuda_g1
 
-    calls = {key: collections.Counter()
-             for key in ("K1", "K2", "K3", "K3-scan", "K3-splice", "K4")}
+    calls = {key: collections.Counter() for key in launch_counts()}
+    launched = collections.Counter()
 
     def points(t):
         return t.numel() // t.shape[-1]
@@ -774,6 +828,7 @@ def _calls_of(run, keep=None) -> dict:
 
     shape_of = {
         (cuda_mont, "mont_mul"): ("K1", lambda fc, a, b: (points(a),)),
+        (cuda_mont, "mont_pow"): ("K1-pow", lambda fc, a, e: (points(a), e.bit_length())),
         (cuda_g1, "point_scan_mixed"): ("K2", lambda fc, p1, pts: (
             points(p1[0]), pts[0].shape[-2])),
         (cuda_g1, "point_add_mixed"): ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
@@ -794,7 +849,9 @@ def _calls_of(run, keep=None) -> dict:
         def wrapped(*args, **kw):
             shape = shape_fn(*args, **kw)
             calls[key][shape] += 1
+            before = launch_counts()[key]
             out = real[target](*args, **kw)
+            launched[key] += launch_counts()[key] - before
             if keep is not None and (key, shape) not in keep:
                 keep[key, shape] = (plain, _copy(args), dict(kw), _copy(out))
             return out
@@ -810,9 +867,9 @@ def _calls_of(run, keep=None) -> dict:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
     after = launch_counts()
-    for key, hist in calls.items():
-        if sum(hist.values()) != after[key] - before[key]:
-            raise AssertionError(f"{key} launches recorded {sum(hist.values())} differ from "
+    for key in calls:
+        if launched[key] != after[key] - before[key]:
+            raise AssertionError(f"{key} launches recorded {launched[key]} differ from "
                                  f"its count over the same run {after[key] - before[key]}")
     return {key: [[*shape, n] for shape, n in sorted(hist.items())]
             for key, hist in calls.items()}
@@ -919,12 +976,13 @@ def k3_times(add, plain, shapes, pts) -> list:
     return out
 
 
-def _check_and_time(res: dict, call, x, plain=None, label: str = "") -> dict:
+def _check_and_time(res: dict, call, x, plain=None, label: str = "",
+                    iters: int = K3_SCAN_ITERS) -> dict:
     """Fills ``res`` for one shape: the sha256 of ``call()``'s result
     (``digest``, for comparing checkouts); given ``plain`` (a call), its ms
     and the largest difference from it, which must be 0; then ms per call on
     the card alone (``queued_ms``) and paced by the host (``chain_ms``),
-    over K3_SCAN_ITERS calls behind ``x``."""
+    over ``iters`` calls behind ``x``."""
     import torch
 
     from halo2_rsa_tpu_torch.utils.profiling import chain_ms
@@ -942,7 +1000,7 @@ def _check_and_time(res: dict, call, x, plain=None, label: str = "") -> dict:
             raise AssertionError(f"{label} differs from its plain version")
     del got
     step = lambda q: (call(), q)[1]  # noqa: E731
-    res.update(ms=queued_ms(step, x, K3_SCAN_ITERS), host_paced_ms=chain_ms(step, x, K3_SCAN_ITERS))
+    res.update(ms=queued_ms(step, x, iters), host_paced_ms=chain_ms(step, x, iters))
     return res
 
 
@@ -1036,6 +1094,84 @@ def phase_k1(report, kernels):
     line(f"[6 K1] {len(hist)} path shapes, 1 to {top} products per launch, {sum(hist.values())} "
          f"launches per warm prove: all bitwise equal | card time per warm prove (sum of "
          f"launches x queued ms) {card:.3f} ms")
+
+
+POW_BIG = 1 << 14  # K1-pow's throughput shape: about one block of 128 threads per SM
+# inversions per timed chain: a checkout whose exponentiation is one K1 launch
+# per product queues ~380 launches per inversion, and the chain must stay
+# within the card's launch queue
+K1_POW_ITERS = 2
+
+
+def inversion_products(e: int) -> int:
+    """The dependent products of a left-to-right square-and-multiply to the
+    power e >= 1: a squaring per bit below the top, a multiply per set bit
+    below it."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def k1_pow_times(inv, shapes, plain=None) -> list:
+    """The field inversion over BN254 Fr (K1-pow to the power p - 2) at each
+    (kind, n) of ``shapes``, on the first n of POW_BIG random elements
+    (``_check_and_time``): ``inv(x)``, hashed and, given ``plain(x)``, held
+    bitwise against it; K1_POW_ITERS calls per timed chain.
+    ``scripts/time_kernels.py`` runs it on another checkout's
+    ``vecfield.inv``."""
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    fc = vecfield.consts(BN254_FR)
+    xs = mont_layout.random_elements(fc, max(n for _, n in shapes), 35, "cuda")
+    out = []
+    for kind, n in shapes:
+        x = xs[:n]
+        out.append(_check_and_time(
+            dict(kind=kind, n=n, products=inversion_products(BN254_FR.p - 2)),
+            lambda x=x: inv(x), x, plain and (lambda x=x: plain(x)),
+            f"K1-pow at {n} elements", iters=K1_POW_ITERS))
+    return out
+
+
+def phase_k1_pow(report, kernels):
+    """K1-pow at the shapes one warm prove launches it with (the one field
+    inversion) and at POW_BIG elements (``k1_pow_times``); one launch per
+    warm prove."""
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    f = report["flagship"]
+    e = BN254_FR.p - 2
+    fc = vecfield.consts(BN254_FR)
+    per_prove = f["launches_per_warm_prove"]
+    if per_prove["K1-pow"] != 1:
+        raise AssertionError(f"K1-pow launched {per_prove['K1-pow']} times per warm prove, "
+                             f"expected 1 (the one field inversion)")
+    hist = {}
+    for n, bits, calls in f["k1_pow_calls_per_warm_prove"]:
+        if bits != e.bit_length():
+            raise AssertionError(f"K1-pow to a {bits}-bit power on the path: only the inversion "
+                                 f"(a {e.bit_length()}-bit power) is timed")
+        hist[n] = calls
+    shapes = [("path", n) for n in sorted(hist)] + [("parity", POW_BIG)]
+    out = k1_pow_times(lambda x: cuda_mont.mont_pow(fc, x, e), shapes,
+                       plain=lambda x: cuda_mont.mont_pow_plain(fc, x, e))
+    empty = report["empty_launch"]["ms"]
+    for r in out:
+        r["launches_per_warm_prove"] = hist.get(r["n"], 0) if r["kind"] == "path" else 0
+        line(f"[6 K1-pow] {r['kind']} n={r['n']}: bitwise equal | card {r['ms']:.4f} ms for a "
+             f"chain of {r['products']} dependent products ({r['ms'] / r['products'] * 1e3:.3f} "
+             f"us each; empty launch {empty:.4f} ms), host-paced {r['host_paced_ms']:.4f} ms, "
+             f"plain {r['plain_ms']:.1f} ms | {r['launches_per_warm_prove']} launches per warm "
+             f"prove")
+    report["k1_pow"] = dict(shapes=out)
+    row = _path_row(out, "n")
+    kernels["K1-pow"].update(
+        **_row_fields(kernels["K1-pow"], row),
+        shape=f"{row['n']} element, e = p - 2 over BN254 Fr (the inversion of batch_inv_nz; a "
+              f"chain of {row['products']} products)")
+    line(f"[6 K1-pow] K1 mont_mul launches per warm prove {per_prove['K1']}, K1-pow "
+         f"{per_prove['K1-pow']}")
 
 
 def k2_inputs(m: int, c: int):
@@ -1434,6 +1570,12 @@ def _k1_part(sass, r):
     return (r["n"], 96, sass["K1"])
 
 
+def _pow_part(sass, r):
+    # reads and writes 1 element; its chain of products at K1's SASS per
+    # product (the ops bound of one thread's chain: ~0 at n = 1)
+    return (r["n"], 64, {f: sass["K1"][f] * r["products"] for f in ("fma", "alu", "issued", "int")})
+
+
 def shape_bound(report, n: int, nbytes: int, counts: dict) -> dict:
     """The least time of one launch over n elements of nbytes each, whose
     SASS per element is ``counts``: the larger of its bytes over HBM_BYTES_S
@@ -1477,6 +1619,7 @@ def phase_bounds(report, kernels):
     n_p1 = 16 << P1_LOG_N
     work = {  # key -> [(elements, bytes per element, SASS counts per element)]
         "K1": [(1 << 20, 96, sass["K1"])],
+        "K1-pow": [_pow_part(sass, _path_row(report["k1_pow"]["shapes"], "n"))],
         "K2": [_k2_part(sass, _path_row(report["k2"]["shapes"], "m"))],
         "K3": [_k3_part(sass, _path_row(report["k3"]["shapes"], "n"))],
         "K3-scan": [_scan_part(sass, max(report["k3_scan"]["shapes"],
@@ -1520,6 +1663,7 @@ def phase_bounds(report, kernels):
     rank = {}
     for key, part, dims in (
             ("K1", _k1_part, None),
+            ("K1-pow", _pow_part, lambda r: f"n={r['n']}, {r['products']} products per element"),
             ("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
             ("K3", _k3_part, lambda r: f"n={r['n']}"),
             ("K3-scan", _scan_part, lambda r: (
@@ -1610,6 +1754,45 @@ def corrupt(builder, rng, values=None, gates: int = 3, lookups: int = 3) -> list
     return vals
 
 
+def config1_inputs() -> tuple:
+    """Config #1 ready to check: (its four builders, the compiled circuit,
+    the (CHECK_BATCH, W, 8) witness batch on the host (the four witnesses
+    tiled), and a function giving the checker's arrays on a device)."""
+    import numpy as np
+    import torch
+
+    from halo2_rsa_tpu_torch.circuit import checker
+
+    builders = config1_builders()
+    c1 = checker.compile_circuit(builders[0])
+    w4 = np.stack([checker.witness_limbs(b) for b in builders])
+
+    def device_arrays(dev):
+        idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
+        coef = torch.from_numpy(c1.coef_table).to(dev)[idx(c1.gate_coef_id)]
+        return idx(c1.gate_idx), coef, [(bits, idx(i)) for bits, i in c1.lookup_groups]
+
+    return builders, c1, np.tile(w4, (CHECK_BATCH // 4, 1, 1)), device_arrays
+
+
+def batched_check_ms(c1, wb, dev) -> tuple:
+    """(ms per batched check on the card, CUDA events over CHECK_ITERS
+    checks; host wall ms per check; the last check's counts)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(CHECK_ITERS):
+        gates, lk = batched_violations(c1, wb, dev)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / CHECK_ITERS
+    return start.elapsed_time(end) / CHECK_ITERS, wall * 1e3, (gates, lk)
+
+
 def batched_violations(compiled, wb, device_arrays) -> tuple:
     """Per-instance (gate, lookup) violation counts, (B,) each, of a (B, W, 8)
     standard-form witness batch: the witness into Montgomery form (one K1
@@ -1676,22 +1859,13 @@ def phase_checker(report, kernels, flagship):
 
     # BASELINE config #1, batched
     t0 = time.perf_counter()
-    builders = config1_builders()
-    c1 = checker.compile_circuit(builders[0])
+    builders, c1, w, device_arrays = config1_inputs()
     out["config1_build_s"] = time.perf_counter() - t0
-    w4 = np.stack([checker.witness_limbs(b) for b in builders])
-    w = np.tile(w4, (CHECK_BATCH // 4, 1, 1))
     bad_ids = sorted(int(i) for i in rng.choice(CHECK_BATCH, 6, replace=False))
     wbad = w.copy()
     for i, inst in enumerate(bad_ids):
         b = builders[inst % 4]
         wbad[inst] = checker.witness_limbs(corrupt(b, rng, gates=i % 3 + 1, lookups=i % 2 + 1))
-
-    def device_arrays(dev):
-        idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
-        coef = torch.from_numpy(c1.coef_table).to(dev)[idx(c1.gate_coef_id)]
-        return idx(c1.gate_idx), coef, [(bits, idx(i)) for bits, i in c1.lookup_groups]
-
     dev = device_arrays("cuda")
     wb = torch.from_numpy(w).cuda()
     torch.cuda.synchronize()
@@ -1714,17 +1888,7 @@ def phase_checker(report, kernels, flagship):
                 raise AssertionError(f"config #1 instance {inst}: card {got}, cpu {want}")
         elif g_bad[inst] or l_bad[inst]:
             raise AssertionError(f"config #1 instance {inst} (not corrupted) has violations")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(CHECK_ITERS):
-        gates, lk = batched_violations(c1, wb, dev)
-    end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / CHECK_ITERS
-    ms = start.elapsed_time(end) / CHECK_ITERS
+    ms, wall_ms, (gates, lk) = batched_check_ms(c1, wb, dev)
     if int(gates.sum()) or int(lk.sum()):
         raise AssertionError("a valid config #1 instance has violations on the card")
     products = CHECK_BATCH * c1.num_gates
@@ -1732,7 +1896,7 @@ def phase_checker(report, kernels, flagship):
         config1=dict(bits=CHECK_BITS, batch=CHECK_BATCH, gate_rows=int(c1.num_gates),
                      witness=int(c1.num_witness), lookups=int(c1.num_lookups),
                      corrupted=bad_ids, corrupted_counts=[[g_bad[i], l_bad[i]] for i in bad_ids],
-                     iters=CHECK_ITERS, ms_per_batch=ms, wall_ms_per_batch=wall * 1e3,
+                     iters=CHECK_ITERS, ms_per_batch=ms, wall_ms_per_batch=wall_ms,
                      checks_per_s=CHECK_BATCH / (ms / 1e3), k1_launches_per_check=k1_per_check,
                      k1_products_per_launch=[CHECK_BATCH * c1.num_witness, products],
                      peak_mem_bytes=torch.cuda.max_memory_allocated(), build_s=out["config1_build_s"]))
@@ -1742,7 +1906,7 @@ def phase_checker(report, kernels, flagship):
          f"violations; {len(bad_ids)} corrupted instances' gate/lookup counts "
          f"{r1['corrupted_counts']} equal the CPU's")
     line(f"[10 checker] config #1 batched check: {ms:.3f} ms per batch of {CHECK_BATCH} (CUDA "
-         f"events, {CHECK_ITERS} warm iterations; host wall {wall * 1e3:.3f} ms) = "
+         f"events, {CHECK_ITERS} warm iterations; host wall {wall_ms:.3f} ms) = "
          f"{r1['checks_per_s']:.1f} checks/s | K1 {k1_per_check} launches per check, "
          f"{CHECK_BATCH} x {c1.num_witness} products (to_mont) and {CHECK_BATCH} x "
          f"{c1.num_gates} = {products} (gates) | peak memory "
@@ -1803,6 +1967,22 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
     return out
 
 
+def sha_circuit() -> tuple:
+    """RSA-1024 + SHA-256 of a SHA_MSG_LEN B message in the circuit, message
+    and signature from random.Random(7), built and compiled: (circuit,
+    compiled, k)."""
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
+
+    rng = random.Random(7)
+    msg = bytes(rng.randrange(256) for _ in range(SHA_MSG_LEN))
+    n, sig = sign_fixture(SHA_BITS, msg, rng=random.Random(7))
+    circ = Pkcs1v15Circuit.build(SHA_BITS, n, sig, msg=msg)
+    compiled = circ.compile()
+    k = max(compiled.num_gates + len(compiled.instance_idx),
+            compiled.num_witness // 5 + 1).bit_length()
+    return circ, compiled, k
+
+
 def phase_sha(report, kernels):
     """[11 sha] RSA-1024 + SHA-256 of a 64 B message in the circuit (k=17;
     halo2-rsa ``benches/bench.rs:349-367``), as ``scripts/time_torch_flagship.py
@@ -1817,21 +1997,14 @@ def phase_sha(report, kernels):
     the path (``_hold_path_calls``)."""
     import torch
 
-    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
     from halo2_rsa_tpu_torch.prover import kzg, plonk
 
-    rng = random.Random(7)
-    msg = bytes(rng.randrange(256) for _ in range(SHA_MSG_LEN))
-    n, sig = sign_fixture(SHA_BITS, msg, rng=random.Random(7))
     out = {}
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    circ = Pkcs1v15Circuit.build(SHA_BITS, n, sig, msg=msg)
-    compiled = circ.compile()
+    circ, compiled, k = sha_circuit()
     out["build_compile_s"] = time.perf_counter() - t0
-    k = max(compiled.num_gates + len(compiled.instance_idx),
-            compiled.num_witness // 5 + 1).bit_length()
     out.update(k=k, gates=int(compiled.num_gates))
     if k != 17:
         raise AssertionError(f"RSA-1024 SHA-64 picked k={k}, expected 17")
@@ -1887,6 +2060,7 @@ def phase_sha(report, kernels):
     flag = report["flagship"]
     covered = {key: {tuple(c[:-1]) for c in v} for key, v in flag["g1_calls_per_warm_prove"].items()}
     covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
+    covered["K1-pow"] = {tuple(c[:-1]) for c in flag["k1_pow_calls_per_warm_prove"]}
     out["held"] = _hold_path_calls(keep, hist, covered)
     del keep
     out["held_s"] = time.perf_counter() - t0
@@ -1915,6 +2089,7 @@ def main() -> int:
     flagship = phase_flagship(report, kernels)
     _empty_launch(report)
     phase_k1(report, kernels)
+    phase_k1_pow(report, kernels)
     phase_k2(report, kernels)
     phase_k3(report, kernels)
     phase_k4(report, kernels)

@@ -122,6 +122,37 @@ __device__ __forceinline__ void fe_mul(const uint32_t a[H2R_LIMBS], const uint32
   fe_cond_sub(r, t[H2R_LIMBS], f);
 }
 
+// x mod p for any 256-bit x, in place: p subtracted while x >= p (at most
+// 2^256 / p times; none for a canonical x).
+__device__ __forceinline__ void fe_reduce(uint32_t x[H2R_LIMBS], const FieldP& f) {
+  for (;;) {
+    uint32_t d[H2R_LIMBS];
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int j = 0; j < H2R_LIMBS; ++j) {
+      uint64_t s = (uint64_t)x[j] - (uint64_t)f.p[j] - borrow;
+      d[j] = (uint32_t)s;
+      borrow = (s >> 32) & 1;
+    }
+    if (borrow) return;
+#pragma unroll
+    for (int j = 0; j < H2R_LIMBS; ++j) x[j] = d[j];
+  }
+}
+
+// R mod p (1 in Montgomery form): 2^256 - p, the two's complement of p,
+// reduced.
+__device__ __forceinline__ void fe_mont_one(uint32_t r[H2R_LIMBS], const FieldP& f) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < H2R_LIMBS; ++j) {
+    uint64_t s = 0ull - (uint64_t)f.p[j] - borrow;
+    r[j] = (uint32_t)s;
+    borrow = (s >> 32) & 1;
+  }
+  fe_reduce(r, f);
+}
+
 // 9 * a by adds (b3 = 3 * b = 9 on BN254 G1, y^2 = x^3 + 3).
 __device__ __forceinline__ void fe_mul9(const uint32_t a[H2R_LIMBS], uint32_t r[H2R_LIMBS],
                                         const FieldP& f) {

@@ -1,9 +1,13 @@
-"""K1: batched Montgomery multiplication — the CUDA kernel's wrapper, its
-plain PyTorch version, and its launch counter.
+"""K1: batched Montgomery multiplication — the CUDA kernels' wrappers, their
+plain PyTorch versions, and their launch counters.
 
 Counterpart of ``halo2_rsa_tpu/fields/pallas_mont.py``. The kernel
 (``csrc/mont.cu``) replaces ``_mont_mul_kernel_body``: a CIOS over 8 x 32-bit
-limbs with 64-bit accumulators, one thread per element.
+limbs with 64-bit accumulators, one thread per element. The JAX package
+also runs K1 inside compiled loops; the port runs those loops as kernels
+of their own on the same CIOS core, each computing the same canonical
+residues: :func:`mont_pow`, a whole square-and-multiply per element in one
+launch (``csrc/mont_pow.cu``; the JAX package's ``vecfield._pow_bits``).
 
 :func:`mont_mul` takes two ``(..., 8)`` int32 tensors of one shape (the
 int32 bit pattern is the uint32 limb). On a CUDA tensor it launches the
@@ -26,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 LIMBS = 8
-LAUNCHES = {"mont_mul": 0}
+LAUNCHES = {"mont_mul": 0, "mont_pow": 0}
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -147,17 +151,34 @@ def mont_mul_plain(fc, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return to_int32(mont_mul_u64(fc, u64(a), u64(b)))
 
 
+def mont_pow_plain(fc, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e by LSB-first square-and-multiply over :func:`mont_mul_plain`
+    (the JAX package's ``_pow_bits``); same contract as :func:`mont_pow`."""
+    acc = fc.tensor("r_limbs", a.device).expand(a.shape).contiguous()
+    sq = a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            acc = mont_mul_plain(fc, acc, sq)
+        if i + 1 < e.bit_length():
+            sq = mont_mul_plain(fc, sq, sq)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
+
+
+def limbs_arg(x: int):
+    """A 256-bit int's limbs as a ctypes uint32[8]."""
+    return (ctypes.c_uint32 * LIMBS)(*[(x >> (32 * j)) & _M32 for j in range(LIMBS)])
 
 
 def p_arg(fc):
     """p's limbs as a ctypes uint32[8] (kept alive on the FieldConsts)."""
     arr = getattr(fc, "_p_ctypes", None)
     if arr is None:
-        arr = (ctypes.c_uint32 * LIMBS)(*[(fc.field.p >> (32 * j)) & _M32 for j in range(LIMBS)])
-        fc._p_ctypes = arr
+        arr = fc._p_ctypes = limbs_arg(fc.field.p)
     return arr
 
 
@@ -207,4 +228,30 @@ def mont_mul(fc, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
     check_launch(err, "h2r_mont_mul")
     LAUNCHES["mont_mul"] += 1
+    return out
+
+
+def mont_pow(fc, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e over a (..., 8) int32 tensor for one exponent 0 <= e < 2^256;
+    Montgomery in and out (e = 0 gives Montgomery 1, 0^e = 0 for e > 0).
+
+    CUDA tensor: one launch of K1-pow on the current stream (one thread per
+    element, the whole square-and-multiply in registers). CPU tensor:
+    :func:`mont_pow_plain`."""
+    if not 0 <= e < 1 << 256:
+        raise ValueError(f"exponent {e} is outside [0, 2^256)")
+    if a.device.type == "cpu":
+        return mont_pow_plain(fc, a, e)
+    check_kernel_args(a)
+    from ..utils.cuda_build import library
+
+    out = torch.empty_like(a)
+    n = a.numel() // LIMBS
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = library().h2r_mont_pow(
+        a.data_ptr(), out.data_ptr(), n, limbs_arg(e), e.bit_length(), p_arg(fc), fc.n0inv32,
+        stream,
+    )
+    check_launch(err, "h2r_mont_pow")
+    LAUNCHES["mont_pow"] += 1
     return out

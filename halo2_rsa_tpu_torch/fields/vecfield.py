@@ -6,8 +6,8 @@ An element is a canonical Montgomery value (R = 2^256) stored as a
 pattern is the uint32 limb. Leading axes are batch axes and broadcast like
 any torch op. Every function takes its device from its tensor arguments.
 
-``mont_mul`` goes to K1 (:mod:`.cuda_mont`): the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor. Additions and subtractions are
+``mont_mul`` goes to K1 and ``pow_const`` to K1-pow (:mod:`.cuda_mont`):
+the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. Additions and subtractions are
 plain torch ops on both: the limbs widen to int64, and the carry chain is
 resolved by :func:`.cuda_mont.carry_normalize` (a fixed number of ops, so no
 host synchronisation on the card).
@@ -156,16 +156,9 @@ def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def pow_const(fc: FieldConsts, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e for a Python-int exponent; Montgomery in and out (LSB-first
-    square-and-multiply)."""
-    acc = fc.tensor("r_limbs", a.device).expand(a.shape).contiguous()
-    sq = a
-    for i in range(e.bit_length()):
-        if (e >> i) & 1:
-            acc = mont_mul(fc, acc, sq)
-        if i + 1 < e.bit_length():
-            sq = mont_mul(fc, sq, sq)
-    return acc
+    """a^e for a Python-int exponent 0 <= e < 2^256; Montgomery in and out
+    (one K1-pow launch on the card)."""
+    return cuda_mont.mont_pow(fc, a.contiguous(), e)
 
 
 def inv(fc: FieldConsts, a: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time K2 (the bucket scan's mixed add), K3 (the complete add) or K4 (the
-Horner combine's doubling) of ``halo2_rsa_tpu_torch`` in another checkout at
-the shapes ``chip_smoke.py`` recorded, so that two commits can be compared
-inside one run on the same card.
+"""Time K1 (the field layer's Montgomery products), K2 (the bucket scan's
+mixed add), K3 (the complete add) or K4 (the Horner combine's doubling) of
+``halo2_rsa_tpu_torch`` in another checkout at the shapes ``chip_smoke.py``
+recorded, so that two commits can be compared inside one run on the same
+card.
 
     python3 chip_smoke.py                                  # records the shapes
-    python3 scripts/time_kernels.py --kernel k2|k3|k4 [--root DIR]
+    python3 scripts/time_kernels.py --kernel k1|k2|k3|k4 [--root DIR]
 
 ``--root`` is the checkout to time (default: this one); its kernels build
 inside it. The shapes are read from ``chiprun_out/chip_smoke.json`` (phase
@@ -23,13 +24,22 @@ points, ``chip_smoke.k3_scan_times`` at the recorded shapes of its row scans
 at the bucket splice's (a checkout without ``bucket_splice`` runs the gathers,
 adds and selects of its ``msm._bucket_sums``), then the same ``msm_many``
 timings. ``k4`` runs
-``chip_smoke.k4_times``. One JSON line goes to stdout and is appended to
-that file.
+``chip_smoke.k4_times``. ``k1`` times the checkout's ``vecfield.inv`` at
+K1-pow's recorded shapes (one element: the field inversion, one K1-pow
+launch or one K1 launch per product), then end to end: the flagship's
+warm prove (its proof from ``random.Random(chip_smoke.KEY_SEED)``, hashed,
+and the card time and launches of every ``h2r_mont_*`` kernel over one warm
+prove, from ``torch.profiler``), the RSA-1024 SHA-64 path's warm prove (k=17)
+and config #1's batched check (checks/s). One JSON line goes to stdout and
+is appended to that file.
 """
 
 import argparse
+import hashlib
 import json
 import os
+import random
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +50,7 @@ OUT = os.path.join(OUT_DIR, "time_kernels.jsonl")
 MSM_POLYS = (2, 5, 7, 11)  # the flagship's four msm_many calls per prove
 MSM_LOG_N = 15
 MSM_RUNS = 5
+WARM_PROVES = 3  # warm proves timed per path in the k1 run
 
 
 def k2_rows(smoke, recorded) -> tuple:
@@ -178,6 +189,93 @@ def k4_rows(smoke, recorded) -> list:
                           shapes, smoke.k4_points())
 
 
+def k1_rows(smoke, recorded) -> list:
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    fc = vecfield.consts(BN254_FR)
+    shapes = [(r["kind"], r["n"]) for r in recorded["k1_pow"]["shapes"] if r["kind"] == "path"]
+    rows = smoke.k1_pow_times(lambda x: vecfield.inv(fc, x), shapes)
+    for r in rows:
+        r["op"] = "inv"
+    return rows
+
+
+def _k1_profile(run) -> dict:
+    """{kernel: [device ms, launches]} of every ``h2r_mont_*`` kernel over
+    ``run()``, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        m = re.search(r"(h2r_mont_\w+?)_kernel", ev.key)
+        if ev.device_type != torch.autograd.DeviceType.CUDA or not m:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        ms, n = out.get(m.group(1), (0.0, 0))
+        out[m.group(1)] = (ms + us / 1e3, n + ev.count)
+    return {k: list(v) for k, v in sorted(out.items())}
+
+
+def _warm_times(run) -> list:
+    import torch
+
+    runs = []
+    for _ in range(WARM_PROVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return runs
+
+
+def prove_rows(smoke) -> list:
+    """The flagship's and the SHA-64 path's warm proves (a cold one first),
+    each proof from ``random.Random(smoke.KEY_SEED)`` and hashed; the K1
+    family's card time over one flagship warm prove; config #1's checks/s."""
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+
+    out = []
+    for kind, build in (("flagship", smoke.flagship_circuit), ("sha64", smoke.sha_circuit)):
+        circ, compiled, k = build()
+        srs = kzg.setup((1 << k) + plonk.BLIND, tau=777, device="cuda")
+        pk, vk = plonk.keygen(compiled, srs, k=k)
+
+        def prove(pk=pk, circ=circ):
+            return plonk.prove(pk, circ.builder.values, circ.public_inputs,
+                               rng=random.Random(smoke.KEY_SEED))
+
+        proof = prove()
+        if not plonk.verify(vk, proof, circ.public_inputs):
+            raise AssertionError(f"{kind}: the proof does not verify")
+        row = dict(op="prove", kind=kind, k=k, digest=hashlib.sha256(proof).hexdigest())
+        if kind == "flagship":
+            row["k1_profile"] = _k1_profile(prove)
+        runs = _warm_times(prove)
+        row.update(warm_s=runs, mean_s=sum(runs) / len(runs), min_s=min(runs))
+        out.append(row)
+        del srs, pk, vk
+    builders, c1, w, device_arrays = smoke.config1_inputs()
+    dev = device_arrays("cuda")
+    wb = torch.from_numpy(w).cuda()
+    smoke.batched_violations(c1, wb, dev)
+    ms, wall_ms, (gates, lk) = smoke.batched_check_ms(c1, wb, dev)
+    counts = torch.stack([gates, lk]).cpu().numpy().tobytes()
+    out.append(dict(op="check", kind="config1", ms=ms, wall_ms=wall_ms,
+                    checks_per_s=smoke.CHECK_BATCH / (ms / 1e3),
+                    digest=hashlib.sha256(counts).hexdigest()))
+    return out
+
+
 def _mismatches(kernel: str, rows: list) -> list:
     """Shapes whose hash differs from an earlier line's in the output file."""
     if not os.path.exists(OUT):
@@ -195,13 +293,14 @@ def _mismatches(kernel: str, rows: list) -> list:
 
 
 def _key(r) -> str:
-    return " ".join(f"{k}={r[k]}" for k in ("kind", "m", "c", "p", "n", "rows", "len", "tree",
-                                            "buckets", "npad", "nchunks") if k in r)
+    return " ".join(f"{k}={r[k]}" for k in ("op", "kind", "m", "c", "p", "n", "rows", "len",
+                                            "tree", "reverse", "buckets", "npad", "nchunks")
+                    if k in r)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k2", "k3", "k4"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4"), required=True)
     ap.add_argument("--root", default=HERE)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -216,7 +315,9 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json")) as fh:
         recorded = json.load(fh)
     one_launch = None  # K2: whether the checkout's scan is one launch
-    if args.kernel == "k2":
+    if args.kernel == "k1":
+        rows = k1_rows(chip_smoke, recorded) + prove_rows(chip_smoke)
+    elif args.kernel == "k2":
         rows, one_launch = k2_rows(chip_smoke, recorded)
         rows += msm_rows(chip_smoke)
     elif args.kernel == "k3":

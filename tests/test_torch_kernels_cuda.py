@@ -56,6 +56,38 @@ def test_k1_kernel_matches_plain(cuda, field):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", ALL_FIELDS, ids=lambda f: f.name)
+def test_k1_pow_kernel_matches_plain(cuda, field):
+    fc = vecfield.consts(field)
+    a = mont_layout.random_elements(fc, 300, 4, cuda)
+    a[:3] = vecfield.from_ints(fc, [0, 1, field.p - 1], device=cuda)
+    for e in (0, 1, 2, 3, field.p - 2, (1 << 253) + 12345, (1 << 256) - 1):
+        before = cuda_mont.LAUNCHES["mont_pow"]
+        got = cuda_mont.mont_pow(fc, a, e)
+        assert cuda_mont.LAUNCHES["mont_pow"] == before + 1
+        assert torch.equal(got, cuda_mont.mont_pow_plain(fc, a, e)), e
+        assert vecfield.to_ints(fc, got[:4]) == [pow(x, e, field.p) for x in
+                                                 vecfield.to_ints(fc, a[:4])], e
+
+
+@pytest.mark.cuda
+def test_k1_pow_wrapper_rejects_bad_arguments(cuda):
+    fc = vecfield.consts(ALL_FIELDS[0])
+    a = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    before = cuda_mont.LAUNCHES["mont_pow"]
+    with pytest.raises(TypeError):
+        cuda_mont.mont_pow(fc, a.long(), 5)
+    with pytest.raises(ValueError):
+        cuda_mont.mont_pow(fc, a.t().contiguous().t(), 5)
+    with pytest.raises(ValueError):
+        cuda_mont.mont_pow(fc, a[:, :4], 5)
+    for e in (-1, 1 << 256):
+        with pytest.raises(ValueError):
+            cuda_mont.mont_pow(fc, a, e)
+    assert cuda_mont.LAUNCHES["mont_pow"] == before
+
+
+@pytest.mark.cuda
 def test_k2_k3_k4_kernels_match_plain(cuda):
     fq = g1_vec.FQ
     p1 = _points(1000, cuda)
