@@ -14,17 +14,21 @@ the script exits non-zero without its final line):
    halving tree, with 1, 2, 4 and 8 blocks per row; K3's bucket splice at
    128 rows x 256 buckets over 2^15 points; K1-pow, the exponentiation in
    one launch, at 256 elements for exponents 0, 1, 2, p - 2 and a random
-   253-bit one over four fields), all compared bitwise; K1 timed there
-   (K2's, K3's and K4's times are phase 6's);
+   253-bit one over four fields; K1-prefix, the prefix and suffix product in
+   at most three launches, over rows of 1 and 3 at lengths around its tile
+   over four fields and at one row of more than tile^2), all compared
+   bitwise; K1 timed there (K2's, K3's and K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
 6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove (K1-pow exactly once: the one field inversion); the
-   shapes of every K1-K4 launch of one more warm prove (``chip_smoke.json``:
-   ``k1_calls_per_warm_prove``, ``k1_pow_calls_per_warm_prove``,
+   one warm prove (K1-pow exactly once: the one field inversion; K1-prefix
+   at most three launches per call); the shapes of every K1-K4 launch of one
+   more warm prove (``chip_smoke.json``: ``k1_calls_per_warm_prove``,
+   ``k1_pow_calls_per_warm_prove``, ``k1_prefix_calls_per_warm_prove``,
    ``g1_calls_per_warm_prove``); then K1 at each of its shapes, K1-pow at
-   its shapes (the inversion) and at 2^14 elements, K2
+   its shapes (the inversion) and at 2^14 elements, K1-prefix at its shapes
+   (rows, length, direction), K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
    2^16 points with C = 1, K3 at its shapes and at 2^16 points, its row
@@ -87,6 +91,7 @@ import contextlib
 import functools
 import hashlib
 import io
+import itertools
 import json
 import os
 import random
@@ -170,6 +175,7 @@ def phase_device(report):
 SASS_NAMES = {
     "K1": ("h2r_mont_mul_kernel", ()),
     "K1-pow": ("h2r_mont_pow_kernel", ()),
+    "K1-prefix": ("h2r_mont_scan_tiles_kernel", ()),
     "K2": ("h2r_g1_scan_mixed_kernel", ()),
     "K3": ("h2r_g1_add_kernel", ()),
     "K3-scan": ("h2r_g1_scan_rows_kernel", (0,)),  # one block per row
@@ -331,6 +337,51 @@ def _parity_pow(report, kernels):
         replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", max_abs_err=worst, timing="queued")
     line(f"[3 parity] K1-pow mont_pow: {POW_N} elements x 4 fields x exponents 0, 1, 2, p - 2 "
          f"and a random 253-bit one bitwise equal to the plain version and to Python ints")
+
+
+def _parity_prefix(report, kernels):
+    """K1-prefix against its plain version, forward and reversed, over every
+    field for rows of 1 and 3 at lengths around its tile, and over BN254 Fr
+    at one row of more than PREFIX_TILE^2 elements (its tile totals scanned
+    a tile at a time); each direction's plain run once over the longest
+    rows (a prefix of the first n elements is the first n prefixes, a
+    suffix product of the last n the last n). The first prefixes also
+    against Python ints."""
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import ALL_FIELDS, cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    tile = cuda_mont.PREFIX_TILE
+    lengths = [1, 2, 3, 37, tile - 1, tile, tile + 1, 2 * tile + 3, (1 << 12) + 4, (1 << 15) + 4]
+    worst = held = 0
+    for field in ALL_FIELDS:
+        fc = vecfield.consts(field)
+        cases = [(1, lengths), (3, lengths)]
+        if field is BN254_FR:
+            cases.append((1, [tile * tile + 3, tile * tile - 1]))
+        for rows, ls in cases:
+            top = max(ls)
+            x = mont_layout.random_elements(fc, rows * top, 38 + rows, "cuda").view(rows, top, 8)
+            for reverse in (False, True):
+                want = cuda_mont.mont_prefix_plain(fc, x, reverse)
+                for n in ls:
+                    got = cuda_mont.mont_prefix(
+                        fc, (x[:, -n:] if reverse else x[:, :n]).contiguous(), reverse)
+                    err = _max_abs_err(got, want[:, -n:] if reverse else want[:, :n])
+                    if err:
+                        raise AssertionError(f"K1-prefix over {field.name} at {rows} x {n}, "
+                                             f"reverse {reverse}, differs from its plain version")
+                    worst, held = max(worst, err), held + 1
+            ints = vecfield.to_ints(fc, x[0, :8])
+            got = vecfield.to_ints(fc, cuda_mont.mont_prefix(fc, x[:1, :8].contiguous()))
+            if got != list(itertools.accumulate(ints, lambda u, v: u * v % field.p)):
+                raise AssertionError(f"K1-prefix over {field.name} differs from Python ints")
+    kernels["K1-prefix"] = dict(
+        name="mont_prefix", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont_scan.cu",
+        replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", max_abs_err=worst, timing="queued")
+    line(f"[3 parity] K1-prefix mont_prefix: {held} (field, rows, length, direction) cases bitwise "
+         f"equal to the plain version, rows of 1 and 3 at lengths {lengths} over 4 fields and of "
+         f"{tile * tile + 3} over bn254_fr (tile {tile}); first prefixes equal to Python ints")
 
 
 def _test_points(n: int, device):
@@ -559,6 +610,7 @@ def _parity_splice(report, kernels):
 def phase_parity(report, kernels):
     _parity_k1(report, kernels)
     _parity_pow(report, kernels)
+    _parity_prefix(report, kernels)
     _parity_g1(report, kernels)
     _parity_scan(report, kernels)
     _parity_splice(report, kernels)
@@ -608,6 +660,7 @@ def launch_counts() -> dict:
     return {
         "K1": cuda_mont.LAUNCHES["mont_mul"],
         "K1-pow": cuda_mont.LAUNCHES["mont_pow"],
+        "K1-prefix": cuda_mont.LAUNCHES["mont_prefix"],
         "K2": cuda_g1.LAUNCHES["g1_add_mixed"],
         "K3": cuda_g1.LAUNCHES["g1_add"],
         "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
@@ -705,6 +758,7 @@ def phase_flagship(report, kernels):
     calls = _calls_of(timed_prove)
     f["k1_calls_per_warm_prove"] = calls.pop("K1")
     f["k1_pow_calls_per_warm_prove"] = calls.pop("K1-pow")
+    f["k1_prefix_calls_per_warm_prove"] = calls.pop("K1-prefix")
     f["g1_calls_per_warm_prove"] = calls
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
@@ -806,11 +860,12 @@ def _copy(x):
 def _calls_of(run, keep=None) -> dict:
     """{kernel: [[shape..., calls], ...]} over ``run()``, read by
     pass-through wrappers around the K1-K4 wrappers: K1 (products,), K1-pow
-    (elements, exponent bits), K2 (rows, C), K3 (points,), K3-scan (rows,
-    L, 1 with the tree else 0), K3-splice (rows, buckets, npad, nchunks), K4
-    (points, doublings); each call launches its kernel once. The launches
-    made inside the wrappers must add up to each kernel's launch count over
-    the same run.
+    (elements, exponent bits), K1-prefix (rows, length, 1 reversed else 0),
+    K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the tree else 0),
+    K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings). Each
+    call launches its kernel once, K1-prefix ``prefix_launches`` times (at
+    most three). The launches made inside the wrappers must add up to each
+    kernel's launch count over the same run.
     Given ``keep`` (a dict), the first launch at each (kernel, shape) is
     kept there as (its plain version, copies of its arguments and of its
     output)."""
@@ -829,6 +884,8 @@ def _calls_of(run, keep=None) -> dict:
     shape_of = {
         (cuda_mont, "mont_mul"): ("K1", lambda fc, a, b: (points(a),)),
         (cuda_mont, "mont_pow"): ("K1-pow", lambda fc, a, e: (points(a), e.bit_length())),
+        (cuda_mont, "mont_prefix"): ("K1-prefix", lambda fc, vals, reverse=False: (
+            rows(vals), vals.shape[-2], int(reverse))),
         (cuda_g1, "point_scan_mixed"): ("K2", lambda fc, p1, pts: (
             points(p1[0]), pts[0].shape[-2])),
         (cuda_g1, "point_add_mixed"): ("K2", lambda fc, p1, p2: (points(p1[0]), 1)),
@@ -851,7 +908,10 @@ def _calls_of(run, keep=None) -> dict:
             calls[key][shape] += 1
             before = launch_counts()[key]
             out = real[target](*args, **kw)
-            launched[key] += launch_counts()[key] - before
+            made = launch_counts()[key] - before
+            if made > (3 if key == "K1-prefix" else 1):
+                raise AssertionError(f"one call of {key} at {shape} made {made} launches")
+            launched[key] += made
             if keep is not None and (key, shape) not in keep:
                 keep[key, shape] = (plain, _copy(args), dict(kw), _copy(out))
             return out
@@ -1170,8 +1230,96 @@ def phase_k1_pow(report, kernels):
         **_row_fields(kernels["K1-pow"], row),
         shape=f"{row['n']} element, e = p - 2 over BN254 Fr (the inversion of batch_inv_nz; a "
               f"chain of {row['products']} products)")
-    line(f"[6 K1-pow] K1 mont_mul launches per warm prove {per_prove['K1']}, K1-pow "
-         f"{per_prove['K1-pow']}")
+
+
+def k1_prefix_times(prefix, shapes, plain=None) -> list:
+    """The prefix product over BN254 Fr at each (kind, rows, n, reverse) of
+    ``shapes``: ``prefix(x, reverse)`` on the first rows of random rows, their
+    first n elements (the last n when reversed), hashed (``digest``) and,
+    given ``plain(x, reverse)``, held bitwise against one plain run per
+    direction over that direction's most rows and longest n (a prefix of the
+    first n elements is the first n prefixes, a suffix product of the last n
+    the last n; ``plain_ms`` is that run's); then ms per call on the card
+    alone (``queued_ms``, K3_SCAN_ITERS calls) and host-paced.
+    ``scripts/time_kernels.py`` runs it on another checkout's
+    ``vecfield.prefix_mul``."""
+    import torch
+
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    fc = vecfield.consts(BN254_FR)
+    m_top, n_top = max(m for _, m, _, _ in shapes), max(n for _, _, n, _ in shapes)
+    xs = mont_layout.random_elements(fc, m_top * n_top, 37, "cuda").view(m_top, n_top, 8)
+    want, out = {}, []
+    for kind, m, n, rev in shapes:
+        x = (xs[:m, -n:] if rev else xs[:m, :n]).contiguous()
+        got = prefix(x, rev)
+        res = dict(kind=kind, rows=m, n=n, reverse=rev, digest=_digest((got,)))
+        if plain is not None:
+            top = (max(m_ for _, m_, _, r_ in shapes if r_ == rev),
+                   max(n_ for _, _, n_, r_ in shapes if r_ == rev))
+            if rev not in want:
+                whole = (xs[:top[0], -top[1]:] if rev else xs[:top[0], :top[1]]).contiguous()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want[rev] = plain(whole, rev)
+                torch.cuda.synchronize()
+                want[rev, "ms"] = (time.perf_counter() - t0) * 1e3
+            w = want[rev][:m, -n:] if rev else want[rev][:m, :n]
+            res["max_abs_err"] = _max_abs_err(got, w)
+            if res["max_abs_err"]:
+                raise AssertionError(f"K1-prefix at {m} x {n}, reverse {rev}, differs from its "
+                                     f"plain version")
+            if (m, n) == top:
+                res["plain_ms"] = want[rev, "ms"]
+        del got
+        step = lambda q, x=x, rev=rev: (prefix(x, rev), q)[1]  # noqa: E731
+        res.update(ms=queued_ms(step, x, K3_SCAN_ITERS),
+                   host_paced_ms=chain_ms(step, x, K3_SCAN_ITERS))
+        out.append(res)
+    return out
+
+
+def phase_k1_prefix(report, kernels):
+    """K1-prefix at the shapes one warm prove launches it with
+    (``k1_prefix_times``); at most three launches per call. Then K1's,
+    K1-pow's and K1-prefix's launches per warm prove."""
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    f = report["flagship"]
+    fc = vecfield.consts(BN254_FR)
+    per_prove = f["launches_per_warm_prove"]
+    hist = {(m, n, rev): calls for m, n, rev, calls in f["k1_prefix_calls_per_warm_prove"]}
+    calls = sum(hist.values())
+    want = sum(k * cuda_mont.prefix_launches(n) for (_, n, _), k in hist.items())
+    if per_prove["K1-prefix"] != want or per_prove["K1-prefix"] > 3 * calls:
+        raise AssertionError(f"K1-prefix launched {per_prove['K1-prefix']} times per warm prove "
+                             f"over {calls} calls, expected {want}")
+    out = k1_prefix_times(lambda x, rev: cuda_mont.mont_prefix(fc, x, rev),
+                          [("path", *k) for k in sorted(hist)],
+                          plain=lambda x, rev: cuda_mont.mont_prefix_plain(fc, x, rev))
+    for r in out:
+        r["calls_per_warm_prove"] = hist[r["rows"], r["n"], r["reverse"]]
+        r["launches_per_call"] = cuda_mont.prefix_launches(r["n"])
+        r["launches_per_warm_prove"] = r["calls_per_warm_prove"] * r["launches_per_call"]
+        line(f"[6 K1-prefix] path rows={r['rows']} n={r['n']} reverse={r['reverse']}: bitwise equal "
+             f"| card {r['ms']:.4f} ms per call ({r['launches_per_call']} launches), host-paced "
+             f"{r['host_paced_ms']:.4f} ms"
+             + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+             + f" | {r['calls_per_warm_prove']} calls per warm prove")
+    report["k1_prefix"] = dict(shapes=out)
+    row = max((r for r in out if "plain_ms" in r), key=lambda r: r["rows"] * r["n"])
+    kernels["K1-prefix"].update(
+        **_row_fields(kernels["K1-prefix"], row),
+        shape=f"{row['rows']} x {row['n']} elements, reverse {row['reverse']} (the flagship's "
+              f"longest prefix product; ms per call of {row['launches_per_call']} launches)")
+    line(f"[6 K1-prefix] launches per warm prove: K1 mont_mul {per_prove['K1']}, K1-pow "
+         f"{per_prove['K1-pow']}, K1-prefix {per_prove['K1-prefix']} over {calls} prefix_mul "
+         f"calls")
 
 
 def k2_inputs(m: int, c: int):
@@ -1570,6 +1718,13 @@ def _k1_part(sass, r):
     return (r["n"], 96, sass["K1"])
 
 
+def _prefix_part(sass, r):
+    # reads and writes each element once; the n - 1 products a row's prefix
+    # product needs at least, at K1's SASS per product
+    return (r["rows"] * r["n"], 64,
+            {f: sass["K1"][f] * (r["n"] - 1) / r["n"] for f in ("fma", "alu", "issued", "int")})
+
+
 def _pow_part(sass, r):
     # reads and writes 1 element; its chain of products at K1's SASS per
     # product (the ops bound of one thread's chain: ~0 at n = 1)
@@ -1620,6 +1775,9 @@ def phase_bounds(report, kernels):
     work = {  # key -> [(elements, bytes per element, SASS counts per element)]
         "K1": [(1 << 20, 96, sass["K1"])],
         "K1-pow": [_pow_part(sass, _path_row(report["k1_pow"]["shapes"], "n"))],
+        "K1-prefix": [_prefix_part(sass, max(
+            (r for r in report["k1_prefix"]["shapes"] if "plain_ms" in r),
+            key=lambda r: r["rows"] * r["n"]))],
         "K2": [_k2_part(sass, _path_row(report["k2"]["shapes"], "m"))],
         "K3": [_k3_part(sass, _path_row(report["k3"]["shapes"], "n"))],
         "K3-scan": [_scan_part(sass, max(report["k3_scan"]["shapes"],
@@ -1664,6 +1822,9 @@ def phase_bounds(report, kernels):
     for key, part, dims in (
             ("K1", _k1_part, None),
             ("K1-pow", _pow_part, lambda r: f"n={r['n']}, {r['products']} products per element"),
+            ("K1-prefix", _prefix_part, lambda r: (
+                f"rows={r['rows']} n={r['n']} reverse={r['reverse']}, {r['calls_per_warm_prove']} "
+                f"calls of {r['launches_per_call']} launches")),
             ("K2", _k2_part, lambda r: f"m={r['m']} C={r['c']}"),
             ("K3", _k3_part, lambda r: f"n={r['n']}"),
             ("K3-scan", _scan_part, lambda r: (
@@ -1677,7 +1838,9 @@ def phase_bounds(report, kernels):
         rank[key] = 0.0
         for r in report[key.lower().replace("-", "_")]["shapes"]:
             r.update(shape_bound(report, *part(sass, r)))
-            rank[key] += r["launches_per_warm_prove"] * (r["ms"] - r["bound_ms"])
+            # per call: K1-prefix's ms is a call's (one or three launches)
+            calls = r.get("calls_per_warm_prove", r["launches_per_warm_prove"])
+            rank[key] += calls * (r["ms"] - r["bound_ms"])
             if dims:
                 line(f"[9 bounds] {key} {r['kind']} {dims(r)}: {r['ms']:.4f} ms vs bound "
                      f"{r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {r['bytes_ms']:.6f}, "
@@ -1702,6 +1865,14 @@ def phase_bounds(report, kernels):
          f"per warm prove, rank {rank['K1']:.4f} ms (bound {k1['card_ms_per_warm_prove'] - rank['K1']:.4f} "
          f"ms); at the 2^20 parity shape {kernels['K1']['ms']:.4f} ms vs bound "
          f"{kernels['K1']['bound_ms']:.4f} ms")
+    family = {"K1": k1["card_ms_per_warm_prove"]}
+    for key in ("K1-pow", "K1-prefix"):
+        family[key] = sum(r.get("calls_per_warm_prove", r["launches_per_warm_prove"]) * r["ms"]
+                          for r in report[key.lower().replace("-", "_")]["shapes"])
+    report["k1_family_card_ms_per_warm_prove"] = family
+    line("[9 bounds] K1's kernels, card ms per warm prove (sum of launches or calls x queued ms): "
+         + ", ".join(f"{k_} {v:.4f}" for k_, v in family.items())
+         + f"; {sum(family.values()):.4f} in all")
     report["rank_ms_per_warm_prove"] = rank
     line("[9 bounds] rank, launches per warm prove x (ms - bound ms): " + ", ".join(
         f"{k_} {v:.2f} ms" for k_, v in rank.items()))
@@ -2061,6 +2232,7 @@ def phase_sha(report, kernels):
     covered = {key: {tuple(c[:-1]) for c in v} for key, v in flag["g1_calls_per_warm_prove"].items()}
     covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
     covered["K1-pow"] = {tuple(c[:-1]) for c in flag["k1_pow_calls_per_warm_prove"]}
+    covered["K1-prefix"] = {tuple(c[:-1]) for c in flag["k1_prefix_calls_per_warm_prove"]}
     out["held"] = _hold_path_calls(keep, hist, covered)
     del keep
     out["held_s"] = time.perf_counter() - t0
@@ -2090,6 +2262,7 @@ def main() -> int:
     _empty_launch(report)
     phase_k1(report, kernels)
     phase_k1_pow(report, kernels)
+    phase_k1_prefix(report, kernels)
     phase_k2(report, kernels)
     phase_k3(report, kernels)
     phase_k4(report, kernels)

@@ -7,7 +7,9 @@ limbs with 64-bit accumulators, one thread per element. The JAX package
 also runs K1 inside compiled loops; the port runs those loops as kernels
 of their own on the same CIOS core, each computing the same canonical
 residues: :func:`mont_pow`, a whole square-and-multiply per element in one
-launch (``csrc/mont_pow.cu``; the JAX package's ``vecfield._pow_bits``).
+launch (``csrc/mont_pow.cu``; the JAX package's ``vecfield._pow_bits``), and
+:func:`mont_prefix`, a prefix (or suffix) product along a row in at most
+three launches (``csrc/mont_scan.cu``; its ``_hs_scan`` of K1 products).
 
 :func:`mont_mul` takes two ``(..., 8)`` int32 tensors of one shape (the
 int32 bit pattern is the uint32 limb). On a CUDA tensor it launches the
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 LIMBS = 8
-LAUNCHES = {"mont_mul": 0, "mont_pow": 0}
+LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_prefix": 0}
+PREFIX_TILE = 512  # elements per tile of K1-prefix (csrc/mont_scan.cu's SCAN_TILE)
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -169,6 +172,35 @@ def mont_pow_plain(fc, a: torch.Tensor, e: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def hs_scan(op, fill: torch.Tensor, vals: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive Hillis-Steele scan along axis -2 of (..., N, 8) (the
+    suffix scan when ``reverse``); ``fill`` is op's identity row (8,)."""
+    n = vals.shape[-2]
+    d = 1
+    while d < n:
+        pad = fill.expand(vals.shape[:-2] + (d, LIMBS))
+        if reverse:
+            shifted = torch.cat([vals[..., d:, :], pad], dim=-2)
+        else:
+            shifted = torch.cat([pad, vals[..., :-d, :]], dim=-2)
+        vals = op(vals, shifted)
+        d <<= 1
+    return vals
+
+
+def mont_prefix_plain(fc, vals: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """The prefix product by :func:`hs_scan` over :func:`mont_mul_plain`
+    (the JAX package's ``prefix_mul``); same contract as :func:`mont_prefix`."""
+    one = fc.tensor("r_limbs", vals.device)
+    return hs_scan(lambda a, b: mont_mul_plain(fc, a, b), one, vals, reverse)
+
+
+def prefix_launches(n: int) -> int:
+    """K1-prefix's launches per call for rows of n elements: one when a row
+    fits in one tile, else three (tile totals, their scan, the tiles)."""
+    return 1 if n <= PREFIX_TILE else 3
+
+
 def limbs_arg(x: int):
     """A 256-bit int's limbs as a ctypes uint32[8]."""
     return (ctypes.c_uint32 * LIMBS)(*[(x >> (32 * j)) & _M32 for j in range(LIMBS)])
@@ -254,4 +286,43 @@ def mont_pow(fc, a: torch.Tensor, e: int) -> torch.Tensor:
     )
     check_launch(err, "h2r_mont_pow")
     LAUNCHES["mont_pow"] += 1
+    return out
+
+
+def mont_prefix(fc, vals: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix product along axis -2 of a (..., n, 8) int32 tensor,
+    or the suffix product (out[i] = vals[i]·…·vals[n-1]) when ``reverse``;
+    Montgomery in and out.
+
+    CUDA tensor (16-byte aligned): K1-prefix on the current stream,
+    :func:`prefix_launches` launches, the tile totals in a scratch tensor
+    allocated here. CPU tensor: :func:`mont_prefix_plain`."""
+    if vals.device.type == "cpu":
+        return mont_prefix_plain(fc, vals, reverse)
+    check_kernel_args(vals)
+    if vals.dim() < 2:
+        raise ValueError(f"K1-prefix takes rows (..., n, 8), got {tuple(vals.shape)}")
+    if vals.data_ptr() % 16:
+        raise ValueError("K1-prefix's tensor must be 16-byte aligned")
+    from ..utils.cuda_build import library
+
+    lib = library()
+    if lib.h2r_mont_prefix_tile() != PREFIX_TILE:
+        raise RuntimeError(f"K1-prefix's tile is {lib.h2r_mont_prefix_tile()}, the wrapper's "
+                           f"PREFIX_TILE {PREFIX_TILE}")
+    out = torch.empty_like(vals)
+    if out.numel() == 0:
+        return out
+    n = vals.shape[-2]
+    rows = vals.numel() // (n * LIMBS)
+    tiles = -(-n // PREFIX_TILE)
+    scratch = (torch.empty((rows, tiles, LIMBS), dtype=torch.int32, device=vals.device)
+               if tiles > 1 else None)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    err = lib.h2r_mont_prefix(
+        vals.data_ptr(), out.data_ptr(), rows, n, int(reverse),
+        None if scratch is None else scratch.data_ptr(), p_arg(fc), fc.n0inv32, stream,
+    )
+    check_launch(err, "h2r_mont_prefix")
+    LAUNCHES["mont_prefix"] += prefix_launches(n)
     return out

@@ -6,8 +6,9 @@ An element is a canonical Montgomery value (R = 2^256) stored as a
 pattern is the uint32 limb. Leading axes are batch axes and broadcast like
 any torch op. Every function takes its device from its tensor arguments.
 
-``mont_mul`` goes to K1 and ``pow_const`` to K1-pow (:mod:`.cuda_mont`):
-the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. Additions and subtractions are
+``mont_mul`` goes to K1, ``pow_const`` to K1-pow and ``prefix_mul`` to
+K1-prefix (:mod:`.cuda_mont`): the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor. Additions and subtractions are
 plain torch ops on both: the limbs widen to int64, and the carry chain is
 resolved by :func:`.cuda_mont.carry_normalize` (a fixed number of ops, so no
 host synchronisation on the card).
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from . import cuda_mont
-from .cuda_mont import LIMBS, carry_normalize, to_int32, u64
+from .cuda_mont import LIMBS, carry_normalize, hs_scan, to_int32, u64
 from .field import R_BITS, PrimeField
 
 _M32 = 0xFFFFFFFF
@@ -175,49 +176,34 @@ def batch_inv_nz(fc: FieldConsts, a: torch.Tensor) -> torch.Tensor:
     tinv = inv(fc, pre[-1:])
     one = fc.tensor("r_limbs", a.device)[None]
     pre_excl = torch.cat([one, pre[:-1]], dim=0)
-    suf_incl = prefix_mul(fc, m.flip(0)).flip(0)
+    suf_incl = prefix_mul(fc, m, reverse=True)
     suf_excl = torch.cat([suf_incl[1:], one], dim=0)
     out = mont_mul(fc, mont_mul(fc, pre_excl, suf_excl), tinv)
     return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
-# log-depth scans along axis -2 of (..., N, 8)
+# scans along axis -2 of (..., N, 8)
 # ---------------------------------------------------------------------------
 
 
-def _hs_scan(op, fill: torch.Tensor, vals: torch.Tensor, reverse: bool = False):
-    """Inclusive Hillis-Steele scan along axis -2; ``fill`` is op's identity
-    row (8,)."""
-    n = vals.shape[-2]
-    d = 1
-    while d < n:
-        pad = fill.expand(vals.shape[:-2] + (d, LIMBS))
-        if reverse:
-            shifted = torch.cat([vals[..., d:, :], pad], dim=-2)
-        else:
-            shifted = torch.cat([pad, vals[..., :-d, :]], dim=-2)
-        vals = op(vals, shifted)
-        d <<= 1
-    return vals
-
-
-def prefix_mul(fc: FieldConsts, vals_mont: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix product (Montgomery) along axis -2."""
-    one = fc.tensor("r_limbs", vals_mont.device)
-    return _hs_scan(lambda a, b: mont_mul(fc, a, b), one, vals_mont)
+def prefix_mul(fc: FieldConsts, vals_mont: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix product (Montgomery) along axis -2, or the suffix
+    product when ``reverse`` (at most three K1-prefix launches on the
+    card)."""
+    return cuda_mont.mont_prefix(fc, vals_mont.contiguous(), reverse)
 
 
 def prefix_add(fc: FieldConsts, vals: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum mod p along axis -2."""
     zero = torch.zeros(LIMBS, dtype=torch.int32, device=vals.device)
-    return _hs_scan(lambda a, b: add(fc, a, b), zero, vals)
+    return hs_scan(lambda a, b: add(fc, a, b), zero, vals)
 
 
 def suffix_add(fc: FieldConsts, vals: torch.Tensor) -> torch.Tensor:
     """s_i = sum_{j >= i} vals_j (mod p) along axis -2."""
     zero = torch.zeros(LIMBS, dtype=torch.int32, device=vals.device)
-    return _hs_scan(lambda a, b: add(fc, a, b), zero, vals, reverse=True)
+    return hs_scan(lambda a, b: add(fc, a, b), zero, vals, reverse=True)
 
 
 def reduce_add(fc: FieldConsts, vals: torch.Tensor) -> torch.Tensor:

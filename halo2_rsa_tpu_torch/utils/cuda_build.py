@@ -41,6 +41,8 @@ _P32 = ctypes.POINTER(ctypes.c_uint32)
 SIGNATURES = {
     "h2r_mont_mul": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
     "h2r_mont_pow": [_VP, _VP, _LL, _P32, ctypes.c_int, _P32, _U32, _VP],
+    "h2r_mont_prefix": [_VP, _VP, _LL, _LL, ctypes.c_int, _VP, _P32, _U32, _VP],
+    "h2r_mont_prefix_tile": [],
     "h2r_g1_add": [_VP] * 9 + [_LL, _VP],
     "h2r_g1_scan_rows": [_VP] * 6 + [_LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     "h2r_g1_bucket_splice": [_VP] * 10 + [_LL, ctypes.c_int, _LL, _LL, ctypes.c_int, _VP],

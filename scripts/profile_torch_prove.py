@@ -97,7 +97,9 @@ def main() -> int:
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
-    ours = {key: [0.0, 0] for key in ("h2r_mont_mul", "h2r_g1_scan_mixed", "h2r_g1_add",
+    ours = {key: [0.0, 0] for key in ("h2r_mont_mul", "h2r_mont_pow", "h2r_mont_scan_reduce",
+                                      "h2r_mont_scan_rows", "h2r_mont_scan_tiles",
+                                      "h2r_g1_scan_mixed", "h2r_g1_add",
                                       "h2r_g1_scan_rows", "h2r_g1_bucket_splice",
                                       "h2r_g1_double")}
     for name, us, cnt in rows:

@@ -26,7 +26,10 @@ adds and selects of its ``msm._bucket_sums``), then the same ``msm_many``
 timings. ``k4`` runs
 ``chip_smoke.k4_times``. ``k1`` times the checkout's ``vecfield.inv`` at
 K1-pow's recorded shapes (one element: the field inversion, one K1-pow
-launch or one K1 launch per product), then end to end: the flagship's
+launch or one K1 launch per product) and its ``vecfield.prefix_mul`` at
+K1-prefix's (``chip_smoke.k1_prefix_times``; a checkout without
+``reverse`` takes a suffix product as batch_inv_nz did, flipped, scanned and
+flipped back), then end to end: the flagship's
 warm prove (its proof from ``random.Random(chip_smoke.KEY_SEED)``, hashed,
 and the card time and launches of every ``h2r_mont_*`` kernel over one warm
 prove, from ``torch.profiler``), the RSA-1024 SHA-64 path's warm prove (k=17)
@@ -36,6 +39,7 @@ is appended to that file.
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import random
@@ -198,7 +202,21 @@ def k1_rows(smoke, recorded) -> list:
     rows = smoke.k1_pow_times(lambda x: vecfield.inv(fc, x), shapes)
     for r in rows:
         r["op"] = "inv"
-    return rows
+    one_call = "reverse" in inspect.signature(vecfield.prefix_mul).parameters
+
+    def prefix(x, rev):
+        if not rev:
+            return vecfield.prefix_mul(fc, x)
+        if one_call:
+            return vecfield.prefix_mul(fc, x, reverse=True)
+        # a checkout from before K1-prefix: batch_inv_nz's suffix product
+        return vecfield.prefix_mul(fc, x.flip(-2)).flip(-2)
+
+    shapes = [(r["kind"], r["rows"], r["n"], r["reverse"]) for r in recorded["k1_prefix"]["shapes"]]
+    scans = smoke.k1_prefix_times(prefix, shapes)
+    for r in scans:
+        r["op"] = "prefix"
+    return rows + scans
 
 
 def _k1_profile(run) -> dict:

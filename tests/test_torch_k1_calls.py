@@ -1,6 +1,9 @@
 """The field layer's own K1 kernels against the JAX package: K1-pow (the
 exponentiation in one launch) through its plain version and
-``vecfield.pow_const`` / ``inv``.
+``vecfield.pow_const`` / ``inv``; K1-prefix (the prefix and suffix product
+in at most three launches) through its plain version and
+``vecfield.prefix_mul``, ``batch_inv_nz`` and ``pow_series``, at row lengths
+around K1-prefix's tile.
 
 Inputs are made from a seeded numpy generator and go through both packages
 on BN254 Fr and Fq; every comparison is bitwise (the port's (..., 8) limbs
@@ -31,15 +34,15 @@ def _consts(field):
     return jvf.consts(field), tvf.consts(_port(field))
 
 
-def _elements(field, shape, seed):
-    """The same Montgomery elements in both packages, 0, 1 and p - 1 first:
-    (jax array (..., 16), port tensor (..., 8))."""
+def _elements(field, shape, seed, edges=(0, 1, -1)):
+    """The same Montgomery elements in both packages, ``edges`` (-1 is p -
+    1) first, the rest nonzero: (jax array (..., 16), port tensor (..., 8))."""
     fcj, fct = _consts(field)
     n = int(np.prod(shape))
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
-    xs = [int.from_bytes(w.astype("<u4").tobytes(), "little") % field.p for w in words]
-    xs[:3] = [0, 1, field.p - 1][: len(xs[:3])]
+    xs = [int.from_bytes(w.astype("<u4").tobytes(), "little") % (field.p - 1) + 1 for w in words]
+    xs[: len(edges)] = [e % field.p for e in edges][:n]
     port = tvf.from_ints_np(fct, xs).reshape(tuple(shape) + (8,))
     return jvf.from_ints(fcj, xs).reshape(tuple(shape) + (16,)), torch.from_numpy(port)
 
@@ -93,3 +96,43 @@ def test_pow_on_cpu_counts_no_launch():
     before = dict(cuda_mont.LAUNCHES)
     assert torch.equal(cuda_mont.mont_pow(fct, at, 12345), cuda_mont.mont_pow_plain(fct, at, 12345))
     assert cuda_mont.LAUNCHES == before
+
+
+TILE = cuda_mont.PREFIX_TILE
+LENGTHS = [1, 2, 3, 37, TILE - 1, TILE, TILE + 1, 2 * TILE + 3, (1 << 12) + 4]
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_prefix_and_suffix_products_match_jax(n, rows):
+    field = BN254_FR if n % 2 else BN254_FQ
+    fcj, fct = _consts(field)
+    aj, at = _elements(field, (rows, n), n, edges=(1, -1))
+    want = jvf.prefix_mul(fcj, aj)
+    _same(cuda_mont.mont_prefix_plain(fct, at), want)
+    _same(tvf.prefix_mul(fct, at), want)
+    want = jvf.prefix_mul(fcj, aj[:, ::-1])[:, ::-1]
+    _same(cuda_mont.mont_prefix_plain(fct, at, reverse=True), want)
+    _same(tvf.prefix_mul(fct, at, reverse=True), want)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_batch_inv_and_pow_series_match_jax(n, rows):
+    field = BN254_FQ if n % 2 else BN254_FR
+    fcj, fct = _consts(field)
+    aj, at = _elements(field, (rows, n), n + 1, edges=(1, -1))
+    _same(tvf.batch_inv_nz(fct, at), jvf.batch_inv_nz(fcj, aj))
+    x = (n * 0x9E3779B97F4A7C15 + rows) % field.p
+    _same(tvf.pow_series(fct, x, n, device="cpu"), jvf.pow_series(fcj, x, n))
+
+
+def test_prefix_on_cpu_counts_no_launch_and_keeps_empty_rows():
+    fct = tvf.consts(_port(BN254_FR))
+    _, at = _elements(BN254_FR, (2, 5), 10)
+    before = dict(cuda_mont.LAUNCHES)
+    assert torch.equal(cuda_mont.mont_prefix(fct, at, reverse=True),
+                       cuda_mont.mont_prefix_plain(fct, at, reverse=True))
+    assert tvf.prefix_mul(fct, at[:, :0]).shape == (2, 0, 8)
+    assert cuda_mont.LAUNCHES == before
+    assert [cuda_mont.prefix_launches(n) for n in (1, TILE, TILE + 1, 1 << 18)] == [1, 1, 3, 3]

@@ -87,6 +87,56 @@ def test_k1_pow_wrapper_rejects_bad_arguments(cuda):
     assert cuda_mont.LAUNCHES["mont_pow"] == before
 
 
+def _prefix_check(fc, x, lengths, cuda):
+    """K1-prefix over the first (or, reversed, the last) n of each row of x
+    against one plain run over all of x: a prefix of the first n elements is
+    the first n prefixes (a suffix product of the last n the last n)."""
+    for reverse in (False, True):
+        want = cuda_mont.mont_prefix_plain(fc, x, reverse)
+        for n in lengths:
+            xs = (x[:, -n:] if reverse else x[:, :n]).contiguous()
+            before = cuda_mont.LAUNCHES["mont_prefix"]
+            got = cuda_mont.mont_prefix(fc, xs, reverse)
+            assert cuda_mont.LAUNCHES["mont_prefix"] == before + cuda_mont.prefix_launches(n)
+            assert torch.equal(got, want[:, -n:] if reverse else want[:, :n]), (n, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ALL_FIELDS, ids=lambda f: f.name)
+def test_k1_prefix_kernel_matches_plain(cuda, field):
+    fc = vecfield.consts(field)
+    tile = cuda_mont.PREFIX_TILE
+    assert cuda_build.library().h2r_mont_prefix_tile() == tile
+    lengths = [1, 2, 3, 37, tile - 1, tile, tile + 1, 2 * tile + 3, (1 << 12) + 4, (1 << 15) + 4]
+    for rows in (1, 3):
+        x = mont_layout.random_elements(fc, rows * lengths[-1], 5 + rows, cuda)
+        _prefix_check(fc, x.view(rows, lengths[-1], 8), lengths, cuda)
+
+
+@pytest.mark.cuda
+def test_k1_prefix_carries_across_tiles_of_totals(cuda):
+    """Rows of more than PREFIX_TILE^2 elements: the scan of the tile totals
+    takes more than one tile of them."""
+    fc = vecfield.consts(ALL_FIELDS[0])
+    n = cuda_mont.PREFIX_TILE ** 2 + 3
+    x = mont_layout.random_elements(fc, n, 9, cuda)
+    _prefix_check(fc, x.view(1, n, 8), [n, n - 4], cuda)
+
+
+@pytest.mark.cuda
+def test_k1_prefix_wrapper_rejects_bad_arguments(cuda):
+    fc = vecfield.consts(ALL_FIELDS[0])
+    a = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda)
+    off = torch.zeros(2 * 4 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(2, 4, 8)
+    before = cuda_mont.LAUNCHES["mont_prefix"]
+    with pytest.raises(TypeError):
+        cuda_mont.mont_prefix(fc, a.long())
+    for bad in (a.transpose(0, 1), a[..., :4], a[0, 0], off):
+        with pytest.raises(ValueError):
+            cuda_mont.mont_prefix(fc, bad)
+    assert cuda_mont.LAUNCHES["mont_prefix"] == before
+
+
 @pytest.mark.cuda
 def test_k2_k3_k4_kernels_match_plain(cuda):
     fq = g1_vec.FQ
