@@ -93,6 +93,7 @@ import hashlib
 import io
 import itertools
 import json
+import math
 import os
 import random
 import re
@@ -173,7 +174,9 @@ def phase_device(report):
 
 # kernel key -> (SASS symbol, template arguments); P1's bodies are added below
 SASS_NAMES = {
-    "K1": ("h2r_mont_mul_kernel", ()),
+    "K1": ("h2r_mont_mul_kernel", (0,)),
+    "K1/cycle": ("h2r_mont_mul_kernel", (1,)),  # a broadcast operand over leading axes
+    "K1/repeat": ("h2r_mont_mul_kernel", (2,)),  # a broadcast operand along the row axis
     "K1-pow": ("h2r_mont_pow_kernel", ()),
     "K1-prefix": ("h2r_mont_scan_tiles_kernel", ()),
     "K2": ("h2r_g1_scan_mixed_kernel", ()),
@@ -263,9 +266,22 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+# (a's shape, b's shape) of K1's broadcast parity: cycle (b's rows over a's
+# leading axes) with one row, with a twiddle row over polys and over a batch;
+# repeat (a row per poly) with 11 and with 2^10 rows
+K1_BCAST_PARITY = [
+    ((1 << 20, 8), (8,)),
+    ((4, 1 << 18, 8), (1, 1 << 18, 8)),
+    ((3, 5, 1 << 16, 8), (5, 1 << 16, 8)),
+    ((11, 95_325, 8), (11, 1, 8)),
+    ((1 << 10, 1 << 10, 8), (1 << 10, 1, 8)),
+]
+
+
 def _parity_k1(report, kernels):
     import torch
 
+    from halo2_rsa_tpu_torch.bench import mont_layout
     from halo2_rsa_tpu_torch.fields import ALL_FIELDS, cuda_mont, vecfield
     from halo2_rsa_tpu_torch.utils.profiling import chain_ms
 
@@ -295,6 +311,19 @@ def _parity_k1(report, kernels):
             ms = queued_ms(step, a, QUEUED_ITERS)
             host_ms = chain_ms(step, a, QUEUED_ITERS)
             plain_ms = chain_ms(lambda x: cuda_mont.mont_mul_plain(fc, x, b), a, 3)
+    # a broadcast operand read in place: its rows repeated over the leading
+    # axes (cycle) or along the row axis (repeat), against the plain product
+    # of the materialised operands
+    fc = vecfield.consts(ALL_FIELDS[0])
+    for shape_a, shape_b in K1_BCAST_PARITY:
+        a = mont_layout.random_elements(fc, math.prod(shape_a[:-1]), 41, "cuda").view(shape_a)
+        b = mont_layout.random_elements(fc, math.prod(shape_b[:-1]), 42, "cuda").view(shape_b)
+        want = cuda_mont.mont_mul_plain(fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
+        for x, y in ((a, b), (b, a)):
+            err = _max_abs_err(vecfield.mont_mul(fc, x, y), want)
+            if err:
+                raise AssertionError(f"K1 at {tuple(x.shape)} x {tuple(y.shape)} differs from its "
+                                     f"plain version")
     kernels["K1"] = dict(
         name="mont_mul", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont.cu",
         replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", max_abs_err=worst,
@@ -302,7 +331,9 @@ def _parity_k1(report, kernels):
         timing="queued",
     )
     line(f"[3 parity] K1 mont_mul: 2^20 x 4 fields bitwise equal | card {ms:.4f} ms, "
-         f"host-paced {host_ms:.4f} ms, plain {plain_ms:.3f} ms (bn254_fr, 2^20)")
+         f"host-paced {host_ms:.4f} ms, plain {plain_ms:.3f} ms (bn254_fr, 2^20); broadcast "
+         f"operands read in place bitwise equal at " + ", ".join(
+             f"{a} x {b}" for a, b in K1_BCAST_PARITY) + " (either operand first)")
 
 
 POW_N = 256  # K1-pow's parity shape: elements per field and exponent
@@ -859,7 +890,8 @@ def _copy(x):
 
 def _calls_of(run, keep=None) -> dict:
     """{kernel: [[shape..., calls], ...]} over ``run()``, read by
-    pass-through wrappers around the K1-K4 wrappers: K1 (products,), K1-pow
+    pass-through wrappers around the K1-K4 wrappers: K1 (products, rows of
+    b, broadcast mode: 0 b of a's shape, 1 cycle, 2 repeat), K1-pow
     (elements, exponent bits), K1-prefix (rows, length, 1 reversed else 0),
     K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the tree else 0),
     K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings). Each
@@ -882,7 +914,8 @@ def _calls_of(run, keep=None) -> dict:
         return points(t) // t.shape[-2]
 
     shape_of = {
-        (cuda_mont, "mont_mul"): ("K1", lambda fc, a, b: (points(a),)),
+        (cuda_mont, "mont_mul"): ("K1", lambda fc, a, b, bcast=None: (
+            points(a), points(b), cuda_mont.BCAST.index(bcast))),
         (cuda_mont, "mont_pow"): ("K1-pow", lambda fc, a, e: (points(a), e.bit_length())),
         (cuda_mont, "mont_prefix"): ("K1-prefix", lambda fc, vals, reverse=False: (
             rows(vals), vals.shape[-2], int(reverse))),
@@ -1119,41 +1152,117 @@ def _empty_launch(report):
         **report["empty_launch"]))
 
 
+K1_MODES = ("same", "cycle", "repeat")  # K1's recorded broadcast modes, cuda_mont.BCAST's order
+K1_STAGED_FROM = 229_376  # K1 beside P2's staged tiles at the path's shapes of this many products
+
+
+def k1_operands(n: int, nb: int, mode: int, a, b) -> tuple:
+    """The ``vecfield.mont_mul`` operands of a recorded K1 shape (n
+    products, nb rows of b, broadcast mode) from the first n elements of a
+    and nb of b: (n, 8) x (n, 8); cycle (n / nb, nb, 8) x (nb, 8); repeat
+    (nb, n / nb, 8) x (nb, 1, 8)."""
+    x, y = a[:n], b[:nb]
+    if mode == 1:
+        return x.view(n // nb, nb, 8), y
+    if mode == 2:
+        return x.view(nb, n // nb, 8), y.view(nb, 1, 8)
+    return x, y
+
+
+def k1_times(mul, shapes, plain=None) -> list:
+    """K1 at each (kind, n, nb, mode) of ``shapes``: ``mul(x, y)`` (a
+    checkout's ``vecfield.mont_mul``, which reads a broadcast operand in
+    place or materialises it first) on ``k1_operands`` of random BN254 Fr
+    elements, hashed (``digest``) and, given ``plain(x, y)``, held bitwise
+    against it (``plain_ms``); then ms per call on the card alone
+    (``queued_ms``, QUEUED_ITERS calls). ``scripts/time_kernels.py`` runs it
+    on another checkout's ``vecfield.mont_mul``."""
+    import torch
+
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+
+    fc = vecfield.consts(BN254_FR)
+    a = mont_layout.random_elements(fc, max(s[1] for s in shapes), 31, "cuda")
+    b = mont_layout.random_elements(fc, max(s[2] for s in shapes), 32, "cuda")
+    out = []
+    for kind, n, nb, mode in shapes:
+        x, y = k1_operands(n, nb, mode, a, b)
+        got = mul(x, y)
+        res = dict(kind=kind, n=n, nb=nb, mode=mode, digest=_digest((got,)))
+        if plain is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(x, y)
+            torch.cuda.synchronize()
+            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            res["max_abs_err"] = _max_abs_err(got, want)
+            if res["max_abs_err"]:
+                raise AssertionError(f"K1 at {n} products, {nb} rows of b ({K1_MODES[mode]}), "
+                                     f"differs from its plain version")
+        del got
+        res["ms"] = queued_ms(lambda v, y=y: mul(v, y), x, QUEUED_ITERS)
+        out.append(res)
+    return out
+
+
 def phase_k1(report, kernels):
-    """K1 at every shape (products per launch) one warm prove launches it
-    with, on random BN254 Fr operands: each bitwise against the plain
-    version (one plain run at the largest shape; K1 is elementwise, so a
-    shape's products are that run's first n) and timed on the card alone
-    (``queued_ms``). The 2^20 parity row is phase 3's."""
+    """K1 at every shape (products, rows of b, broadcast mode) one warm
+    prove launches it with, on random BN254 Fr operands through
+    ``vecfield.mont_mul`` (``k1_times``): each bitwise against the plain
+    product of the materialised operands and timed on the card alone. The
+    2^20 parity row is phase 3's. Then K1 beside P2's staged tiles (d') at
+    the path's shapes of at least K1_STAGED_FROM products, both with b of
+    a's shape."""
+    import torch
+
     from halo2_rsa_tpu_torch.bench import mont_layout
     from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
     from halo2_rsa_tpu_torch.fields.field import BN254_FR
 
     fc = vecfield.consts(BN254_FR)
-    hist = {n: k for n, k in report["flagship"]["k1_calls_per_warm_prove"]}
-    top = max(hist)
-    a = mont_layout.random_elements(fc, top, 31, "cuda")
-    b = mont_layout.random_elements(fc, top, 32, "cuda")
-    want = cuda_mont.mont_mul_plain(fc, a, b)
-    out = []
-    for n in sorted(hist):
-        x, y = a[:n], b[:n]
-        err = _max_abs_err(cuda_mont.mont_mul(fc, x, y), want[:n])
-        if err:
-            raise AssertionError(f"K1 at {n} products differs from its plain version")
-        out.append(dict(kind="path", n=n, launches_per_warm_prove=hist[n], max_abs_err=err,
-                        ms=queued_ms(lambda v, y=y: cuda_mont.mont_mul(fc, v, y), x,
-                                     QUEUED_ITERS)))
+    hist = {tuple(c[:-1]): c[-1] for c in report["flagship"]["k1_calls_per_warm_prove"]}
+    out = k1_times(
+        lambda x, y: vecfield.mont_mul(fc, x, y), [("path", *s) for s in sorted(hist)],
+        plain=lambda x, y: cuda_mont.mont_mul_plain(
+            fc, *[t.contiguous() for t in torch.broadcast_tensors(x, y)]))
+    for r in out:
+        r["launches_per_warm_prove"] = hist[r["n"], r["nb"], r["mode"]]
     k1 = kernels["K1"]
-    out.append(dict(kind="parity", n=1 << 20, launches_per_warm_prove=0,
+    out.append(dict(kind="parity", n=1 << 20, nb=1 << 20, mode=0, launches_per_warm_prove=0,
                     max_abs_err=k1["max_abs_err"], ms=k1["ms"]))
     k1["max_abs_err"] = max(r["max_abs_err"] for r in out)
     report["k1"] = dict(shapes=out)
     card = sum(r["launches_per_warm_prove"] * r["ms"] for r in out)
     report["k1"]["card_ms_per_warm_prove"] = card
-    line(f"[6 K1] {len(hist)} path shapes, 1 to {top} products per launch, {sum(hist.values())} "
-         f"launches per warm prove: all bitwise equal | card time per warm prove (sum of "
-         f"launches x queued ms) {card:.3f} ms")
+    line(f"[6 K1] {len(hist)} path shapes, {min(s[0] for s in hist)} to {max(s[0] for s in hist)} "
+         f"products per launch, {sum(hist.values())} launches per warm prove: all bitwise equal "
+         f"| card time per warm prove (sum of launches x queued ms) {card:.3f} ms")
+    for mode, name in enumerate(K1_MODES):
+        rows = [r for r in out if r["kind"] == "path" and r["mode"] == mode]
+        line(f"[6 K1] {name}: {len(rows)} shapes, "
+             f"{sum(r['launches_per_warm_prove'] for r in rows)} launches per warm prove: "
+             + ", ".join(f"{r['n']} x {r['nb']} rows ({r['launches_per_warm_prove']})"
+                         for r in rows))
+    # K1's 16-byte vector loads against P2's staged tiles (d'), b of a's shape
+    staged = []
+    for n in sorted({r["n"] for r in out if r["kind"] == "path" and r["n"] >= K1_STAGED_FROM}):
+        a = mont_layout.random_elements(fc, n, 43, "cuda")
+        b = mont_layout.random_elements(fc, n, 44, "cuda")
+        if _max_abs_err(mont_layout.mont_mul_staged(fc, a, b, P2_THREADS),
+                        cuda_mont.mont_mul(fc, a, b)):
+            raise AssertionError(f"P2 (d') differs from K1 at {n} products")
+        row = dict(n=n, bytes_ms=n * 96 / HBM_BYTES_S * 1e3,
+                   k1_ms=queued_ms(lambda v, b=b: cuda_mont.mont_mul(fc, v, b), a, QUEUED_ITERS),
+                   staged_ms=queued_ms(lambda v, b=b: mont_layout.mont_mul_staged(
+                       fc, v, b, P2_THREADS), a, QUEUED_ITERS))
+        staged.append(row)
+        line(f"[6 K1] {n} products, b of a's shape: K1 {row['k1_ms']:.4f} ms "
+             f"({row['bytes_ms'] / row['k1_ms'] * 100:.1f} % of the byte bound), P2 staged "
+             f"(d', {P2_THREADS} threads) {row['staged_ms']:.4f} ms "
+             f"({row['bytes_ms'] / row['staged_ms'] * 100:.1f} %)")
+    report["k1"]["staged"] = staged
 
 
 POW_BIG = 1 << 14  # K1-pow's throughput shape: about one block of 128 threads per SM
@@ -1714,8 +1823,8 @@ def _scan_part(sass, r):
 
 
 def _k1_part(sass, r):
-    # reads 2 elements and writes 1 per product
-    return (r["n"], 96, sass["K1"])
+    # reads a and writes out per product, and b's nb rows once
+    return (r["n"], 64 + 32 * r["nb"] / r["n"], sass[("K1", "K1/cycle", "K1/repeat")[r["mode"]]])
 
 
 def _prefix_part(sass, r):
@@ -1995,7 +2104,7 @@ def phase_checker(report, kernels, flagship):
 
     from halo2_rsa_tpu_torch.bench import mont_layout
     from halo2_rsa_tpu_torch.circuit import checker
-    from halo2_rsa_tpu_torch.fields import cuda_mont
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
 
     smi = report["device"]["smi"]
     out = {}
@@ -2083,15 +2192,18 @@ def phase_checker(report, kernels, flagship):
          f"{c1.num_gates} = {products} (gates) | peak memory "
          f"{r1['peak_mem_bytes'] / 2**30:.2f} GiB | {smi}")
 
-    # K1 at the checker's shape: 0 launches per warm prove
+    # K1 at the checker's shape, a gate's coefficients (R rows) read in place
+    # over the batch: 0 launches per warm prove
     fc = c1.fc
-    a = mont_layout.random_elements(fc, products, 33, "cuda")
-    b = mont_layout.random_elements(fc, products, 34, "cuda")
-    err = _max_abs_err(cuda_mont.mont_mul(fc, a, b), cuda_mont.mont_mul_plain(fc, a, b))
+    a = mont_layout.random_elements(fc, products, 33, "cuda").view(CHECK_BATCH, c1.num_gates, 8)
+    b = mont_layout.random_elements(fc, c1.num_gates, 34, "cuda")
+    err = _max_abs_err(vecfield.mont_mul(fc, a, b),
+                       cuda_mont.mont_mul_plain(fc, a, b.expand(a.shape).contiguous()))
     if err:
         raise AssertionError("K1 at the checker's shape differs from its plain version")
-    row = dict(kind="checker", n=products, launches_per_warm_prove=0, max_abs_err=err,
-               ms=queued_ms(lambda v: cuda_mont.mont_mul(fc, v, b), a, QUEUED_ITERS))
+    row = dict(kind="checker", n=products, nb=int(c1.num_gates), mode=1,
+               launches_per_warm_prove=0, max_abs_err=err,
+               ms=queued_ms(lambda v: vecfield.mont_mul(fc, v, b), a, QUEUED_ITERS))
     row.update(shape_bound(report, *_k1_part(report["sass"], row)))
     report["k1"]["shapes"].append(row)
     line(f"[10 checker] K1 at the checker's shape ({products} products): bitwise equal | card "
@@ -2103,10 +2215,11 @@ def phase_checker(report, kernels, flagship):
 SHA_BITS, SHA_MSG_LEN = 1024, 64
 
 
-def _size(shape) -> int:
-    """A recorded shape's elements: products, rows x C, points, rows x L,
-    rows x buckets, or points x doublings."""
-    return shape[0] * (shape[1] if len(shape) > 1 else 1)
+def _size(key: str, shape) -> int:
+    """A recorded shape's elements: products (K1), elements x exponent bits,
+    rows x length, rows x C, points, rows x L, rows x buckets, or points x
+    doublings."""
+    return shape[0] * (shape[1] if len(shape) > 1 and key != "K1" else 1)
 
 
 def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
@@ -2119,7 +2232,7 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
 
     out = []
     for key, shapes in hist.items():
-        largest = max(shapes, key=_size)
+        largest = max(shapes, key=lambda s_: _size(key, s_))
         for shape in sorted(s_ for s_ in shapes if s_ not in covered[key] or s_ == largest):
             if (key, shape) not in keep:
                 raise AssertionError(f"{key} at {shape} was launched by the first run of the "
@@ -2240,7 +2353,7 @@ def phase_sha(report, kernels):
         rows = [r for r in out["held"] if r["kernel"] == key]
         kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
                                           + [r["max_abs_err"] for r in rows])
-        big = max(hist[key], key=_size)
+        big = max(hist[key], key=lambda s_: _size(key, s_))
         line(f"[11 sha] {key}: {len(hist[key])} shapes, {sum(hist[key].values())} launches; "
              f"{sum(r['new'] for r in rows)} shapes not launched by the flagship's warm prove; "
              f"{len(rows)} held bitwise against the plain version on this path's own inputs "

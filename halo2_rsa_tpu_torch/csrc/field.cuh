@@ -36,6 +36,20 @@ __device__ __forceinline__ void fe_store(uint32_t* __restrict__ dst, long long i
   for (int j = 0; j < H2R_LIMBS; ++j) d[j] = r[j];
 }
 
+// element i as two 16-byte vectors (src and dst 16-byte aligned)
+__device__ __forceinline__ void fe_load16(const uint32_t* src, long long i, uint32_t r[H2R_LIMBS]) {
+  const uint4* s = reinterpret_cast<const uint4*>(src + i * H2R_LIMBS);
+  uint4 lo = s[0], hi = s[1];
+  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
+}
+
+__device__ __forceinline__ void fe_store16(uint32_t* dst, long long i, const uint32_t r[H2R_LIMBS]) {
+  uint4* d = reinterpret_cast<uint4*>(dst + i * H2R_LIMBS);
+  d[0] = make_uint4(r[0], r[1], r[2], r[3]);
+  d[1] = make_uint4(r[4], r[5], r[6], r[7]);
+}
+
 // t + hi * 2^256 < 2p  ->  (t + hi * 2^256) mod p, in place.
 __device__ __forceinline__ void fe_cond_sub(uint32_t t[H2R_LIMBS], uint32_t hi,
                                             const FieldP& f) {

@@ -47,19 +47,6 @@
 #define SCAN_TILE (SCAN_THREADS * SCAN_RUN)
 #define SCAN_WARPS (SCAN_THREADS / 32)
 
-__device__ __forceinline__ void fe_load16(const uint32_t* src, long long i, uint32_t r[H2R_LIMBS]) {
-  const uint4* s = reinterpret_cast<const uint4*>(src + i * H2R_LIMBS);
-  uint4 lo = s[0], hi = s[1];
-  r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-  r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
-
-__device__ __forceinline__ void fe_store16(uint32_t* dst, long long i, const uint32_t r[H2R_LIMBS]) {
-  uint4* d = reinterpret_cast<uint4*>(dst + i * H2R_LIMBS);
-  d[0] = make_uint4(r[0], r[1], r[2], r[3]);
-  d[1] = make_uint4(r[4], r[5], r[6], r[7]);
-}
-
 __device__ __forceinline__ void fe_copy(uint32_t d[H2R_LIMBS], const uint32_t s[H2R_LIMBS]) {
 #pragma unroll
   for (int j = 0; j < H2R_LIMBS; ++j) d[j] = s[j];

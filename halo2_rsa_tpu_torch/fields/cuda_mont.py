@@ -3,7 +3,8 @@ plain PyTorch versions, and their launch counters.
 
 Counterpart of ``halo2_rsa_tpu/fields/pallas_mont.py``. The kernel
 (``csrc/mont.cu``) replaces ``_mont_mul_kernel_body``: a CIOS over 8 x 32-bit
-limbs with 64-bit accumulators, one thread per element. The JAX package
+limbs with 64-bit accumulators, one thread per element, with a broadcast
+operand read in place from its distinct rows (:data:`BCAST`). The JAX package
 also runs K1 inside compiled loops; the port runs those loops as kernels
 of their own on the same CIOS core, each computing the same canonical
 residues: :func:`mont_pow`, a whole square-and-multiply per element in one
@@ -33,6 +34,11 @@ import torch.nn.functional as F
 
 LIMBS = 8
 LAUNCHES = {"mont_mul": 0, "mont_pow": 0, "mont_prefix": 0}
+# how mont_mul's b stands for a's n elements, by K1's mode: b of a's shape;
+# "cycle", b's nb rows repeated over a's leading axes (element i reads row
+# i mod nb); "repeat", each of b's nb rows repeated over a's trailing axes
+# (element i reads row i div (n / nb))
+BCAST = (None, "cycle", "repeat")
 PREFIX_TILE = 512  # elements per tile of K1-prefix (csrc/mont_scan.cu's SCAN_TILE)
 
 _M32 = 0xFFFFFFFF
@@ -149,8 +155,22 @@ def mont_mul_u64(fc, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=0).reshape(shape)
 
 
-def mont_mul_plain(fc, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def expand_rows(b: torch.Tensor, n: int, bcast: str) -> torch.Tensor:
+    """The (n, 8) elements that b's rows stand for under ``bcast``."""
+    rows = b.reshape(-1, LIMBS)
+    if n % rows.shape[0]:
+        raise ValueError(f"{rows.shape[0]} broadcast rows do not divide {n} elements")
+    if bcast == "cycle":
+        return rows.repeat(n // rows.shape[0], 1)
+    if bcast == "repeat":
+        return rows.repeat_interleave(n // rows.shape[0], dim=0)
+    raise ValueError(f"unknown broadcast {bcast!r}")
+
+
+def mont_mul_plain(fc, a: torch.Tensor, b: torch.Tensor, bcast: str | None = None) -> torch.Tensor:
     """a·b·2⁻²⁵⁶ mod p in plain torch ops; same contract as :func:`mont_mul`."""
+    if bcast is not None:
+        b = expand_rows(b, a.numel() // LIMBS, bcast).reshape(a.shape)
     return to_int32(mont_mul_u64(fc, u64(a), u64(b)))
 
 
@@ -242,21 +262,38 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError_t {err}")
 
 
-def mont_mul(fc, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product over two (..., 8) int32 tensors of one shape.
+def mont_mul(fc, a: torch.Tensor, b: torch.Tensor, bcast: str | None = None) -> torch.Tensor:
+    """Montgomery product over (..., 8) int32 tensors, in a's shape: b of
+    a's shape, or, with ``bcast`` ("cycle" or "repeat", :data:`BCAST`), b's
+    rows (any shape (..., 8), nb of them dividing a's n elements) read in
+    place for the elements they stand for.
 
-    CUDA tensor: launches K1 on the current stream (one thread per
-    element). CPU tensor: :func:`mont_mul_plain`."""
+    CUDA tensor (16-byte aligned): launches K1 on the current stream (one
+    thread per product; a block size chosen by n). CPU tensor:
+    :func:`mont_mul_plain`."""
     if a.device.type == "cpu":
-        return mont_mul_plain(fc, a, b)
-    check_kernel_args(a, b)
+        return mont_mul_plain(fc, a, b, bcast)
+    mode = BCAST.index(bcast)
+    if mode == 0:
+        check_kernel_args(a, b)
+    else:
+        check_kernel_args(a)
+        check_kernel_args(b)
+        if b.device != a.device:
+            raise ValueError("kernel arguments differ in device")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("K1's tensors must be 16-byte aligned")
+    n, nb = a.numel() // LIMBS, b.numel() // LIMBS
+    out = torch.empty_like(a)
+    if n == 0:
+        return out
+    if mode and (nb == 0 or n % nb or n >= 1 << 32):
+        raise ValueError(f"K1 broadcasts {nb} rows over {n} elements: nb must divide n < 2^32")
     from ..utils.cuda_build import library
 
-    out = torch.empty_like(a)
-    n = a.numel() // LIMBS
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = library().h2r_mont_mul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, p_arg(fc), fc.n0inv32, stream
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, nb, mode, p_arg(fc), fc.n0inv32, stream
     )
     check_launch(err, "h2r_mont_mul")
     LAUNCHES["mont_mul"] += 1

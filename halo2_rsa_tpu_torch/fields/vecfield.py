@@ -132,11 +132,48 @@ def neg(fc: FieldConsts, a: torch.Tensor) -> torch.Tensor:
     return sub(fc, torch.zeros_like(a), a)
 
 
+def broadcast_pattern(a_shape, b_shape):
+    """How K1 reads operands of these (..., 8) shapes: ``(swap, bcast)``,
+    the operand of the broadcast shape first (``swap``: b is it) and the
+    other read in place (:data:`.cuda_mont.BCAST`: None when the shapes are
+    equal; "cycle" when the other repeats over the leading axes, as a row
+    ``t[None]`` over a batch; "repeat" when each of its rows repeats over
+    the trailing axes, as ``t[:, None]`` over rows). None for any other
+    pattern (neither operand has the broadcast shape, or the repeats
+    interleave): both are then materialised."""
+    if tuple(a_shape) == tuple(b_shape):
+        return False, None
+    full = tuple(torch.broadcast_shapes(a_shape, b_shape))
+    if tuple(a_shape) == full:
+        swap, part = False, tuple(b_shape)
+    elif tuple(b_shape) == full:
+        swap, part = True, tuple(a_shape)
+    else:
+        return None
+    lead = full[:-1]
+    rows = ((1,) * (len(full) - len(part)) + part)[:-1]
+    for k in range(len(lead) + 1):
+        if all(d == 1 for d in rows[:k]) and rows[k:] == lead[k:]:
+            return swap, "cycle"
+    for k in range(len(lead) + 1):
+        if rows[:k] == lead[:k] and all(d == 1 for d in rows[k:]):
+            return swap, "repeat"
+    return None
+
+
 def mont_mul(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product (a·b·R⁻¹) mod p; inputs broadcast, outputs canonical."""
-    if a.shape != b.shape:
+    """Montgomery product (a·b·R⁻¹) mod p; inputs broadcast, outputs
+    canonical. A broadcast operand is read in place where
+    :func:`broadcast_pattern` finds how (the product commutes, so either
+    operand may be the broadcast one); any other is materialised first."""
+    pattern = broadcast_pattern(a.shape, b.shape)
+    if pattern is None:
         a, b = torch.broadcast_tensors(a, b)
-    return cuda_mont.mont_mul(fc, a.contiguous(), b.contiguous())
+        return cuda_mont.mont_mul(fc, a.contiguous(), b.contiguous())
+    swap, bcast = pattern
+    if swap:
+        a, b = b, a
+    return cuda_mont.mont_mul(fc, a.contiguous(), b.contiguous(), bcast)
 
 
 def to_mont(fc: FieldConsts, a: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,8 @@ _P32 = ctypes.POINTER(ctypes.c_uint32)
 # C entry points of csrc/*.cu: argument types (every one returns the
 # launch's cudaError_t as an int)
 SIGNATURES = {
-    "h2r_mont_mul": [_VP, _VP, _VP, _LL, _P32, _U32, _VP],
+    "h2r_mont_mul": [_VP, _VP, _VP, _LL, _LL, ctypes.c_int, _P32, _U32, _VP],
+    "h2r_mont_mul_threads": [_LL],
     "h2r_mont_pow": [_VP, _VP, _LL, _P32, ctypes.c_int, _P32, _U32, _VP],
     "h2r_mont_prefix": [_VP, _VP, _LL, _LL, ctypes.c_int, _VP, _P32, _U32, _VP],
     "h2r_mont_prefix_tile": [],

@@ -29,7 +29,9 @@ K1-pow's recorded shapes (one element: the field inversion, one K1-pow
 launch or one K1 launch per product) and its ``vecfield.prefix_mul`` at
 K1-prefix's (``chip_smoke.k1_prefix_times``; a checkout without
 ``reverse`` takes a suffix product as batch_inv_nz did, flipped, scanned and
-flipped back), then end to end: the flagship's
+flipped back) and its ``vecfield.mont_mul`` at K1's (``chip_smoke.k1_times``:
+the operands of each recorded broadcast pattern, which a checkout that
+materialises them copies first), then end to end: the flagship's
 warm prove (its proof from ``random.Random(chip_smoke.KEY_SEED)``, hashed,
 and the card time and launches of every ``h2r_mont_*`` kernel over one warm
 prove, from ``torch.profiler``), the RSA-1024 SHA-64 path's warm prove (k=17)
@@ -216,7 +218,12 @@ def k1_rows(smoke, recorded) -> list:
     scans = smoke.k1_prefix_times(prefix, shapes)
     for r in scans:
         r["op"] = "prefix"
-    return rows + scans
+    shapes = [(r["kind"], r["n"], r["nb"], r["mode"]) for r in recorded["k1"]["shapes"]
+              if r["kind"] == "path"]
+    muls = smoke.k1_times(lambda x, y: vecfield.mont_mul(fc, x, y), shapes)
+    for r in muls:
+        r["op"] = "mul"
+    return rows + scans + muls
 
 
 def _k1_profile(run) -> dict:
@@ -311,9 +318,9 @@ def _mismatches(kernel: str, rows: list) -> list:
 
 
 def _key(r) -> str:
-    return " ".join(f"{k}={r[k]}" for k in ("op", "kind", "m", "c", "p", "n", "rows", "len",
-                                            "tree", "reverse", "buckets", "npad", "nchunks")
-                    if k in r)
+    return " ".join(f"{k}={r[k]}" for k in ("op", "kind", "m", "c", "p", "n", "nb", "mode", "rows",
+                                            "len", "tree", "reverse", "buckets", "npad",
+                                            "nchunks") if k in r)
 
 
 def main() -> int:

@@ -3,7 +3,9 @@ exponentiation in one launch) through its plain version and
 ``vecfield.pow_const`` / ``inv``; K1-prefix (the prefix and suffix product
 in at most three launches) through its plain version and
 ``vecfield.prefix_mul``, ``batch_inv_nz`` and ``pow_series``, at row lengths
-around K1-prefix's tile.
+around K1-prefix's tile; and K1 with a broadcast operand read in place
+(``vecfield.broadcast_pattern``, which classifies a pair of shapes, and
+``vecfield.mont_mul`` on each pattern).
 
 Inputs are made from a seeded numpy generator and go through both packages
 on BN254 Fr and Fq; every comparison is bitwise (the port's (..., 8) limbs
@@ -136,3 +138,57 @@ def test_prefix_on_cpu_counts_no_launch_and_keeps_empty_rows():
     assert tvf.prefix_mul(fct, at[:, :0]).shape == (2, 0, 8)
     assert cuda_mont.LAUNCHES == before
     assert [cuda_mont.prefix_launches(n) for n in (1, TILE, TILE + 1, 1 << 18)] == [1, 1, 3, 3]
+
+
+# (a's shape, b's shape, what vecfield.broadcast_pattern says) without the
+# limb axis: K1 reads the broadcast operand in place as "cycle" (its rows over
+# the leading axes) or "repeat" (each row over the trailing axes), swapping
+# the operands when a is the broadcast one; None materialises both
+PATTERNS = [
+    ((4,), (4,), (False, None)),
+    ((5, 16), (16,), (False, "cycle")),
+    ((16,), (5, 16), (True, "cycle")),
+    ((5, 16), (1, 16), (False, "cycle")),
+    ((5, 16), (), (False, "cycle")),
+    ((1, 16), (16,), (False, "cycle")),
+    ((2, 3, 16), (3, 16), (False, "cycle")),
+    ((5, 16), (5, 1), (False, "repeat")),
+    ((2, 1), (2, 16), (True, "repeat")),
+    ((2, 3, 16), (2, 3, 1), (False, "repeat")),
+    ((2, 3, 16), (2, 1, 1), (False, "repeat")),
+    ((5, 1), (1, 16), None),
+    ((2, 3, 16), (2, 1, 16), None),
+]
+
+
+@pytest.mark.parametrize("sa, sb, want", PATTERNS, ids=lambda v: str(v).replace(" ", ""))
+def test_broadcast_pattern_classifies_shape_pairs(sa, sb, want):
+    assert tvf.broadcast_pattern(sa + (8,), sb + (8,)) == want
+
+
+@pytest.mark.parametrize("sa, sb, want", PATTERNS[1:], ids=lambda v: str(v).replace(" ", ""))
+def test_mont_mul_with_a_broadcast_operand_matches_jax(sa, sb, want):
+    field = BN254_FR if len(sa) % 2 else BN254_FQ
+    fcj, fct = _consts(field)
+    aj, at = _elements(field, sa, 11)
+    bj, bt = _elements(field, sb, 12, edges=(-1,))
+    before = dict(cuda_mont.LAUNCHES)
+    _same(tvf.mont_mul(fct, at, bt), jvf.mont_mul(fcj, aj, bj))
+    _same(tvf.mont_mul(fct, bt, at), jvf.mont_mul(fcj, bj, aj))
+    assert cuda_mont.LAUNCHES == before
+
+
+def test_broadcast_rows_stand_for_their_elements():
+    fct = tvf.consts(_port(BN254_FR))
+    _, a = _elements(BN254_FR, (6, 4), 13)
+    _, rows = _elements(BN254_FR, (2,), 14)
+    cycle = cuda_mont.mont_mul_plain(fct, a, rows, "cycle")
+    repeat = cuda_mont.mont_mul_plain(fct, a, rows, "repeat")
+    for i in range(24):
+        for got, j in ((cycle, i % 2), (repeat, i // 12)):
+            want = cuda_mont.mont_mul_plain(fct, a.reshape(24, 8)[i], rows[j])
+            assert torch.equal(got.reshape(24, 8)[i], want)
+    with pytest.raises(ValueError):
+        cuda_mont.expand_rows(rows[:1].expand(5, 8), 24, "cycle")  # 5 rows do not divide 24
+    with pytest.raises(ValueError):
+        cuda_mont.mont_mul_plain(fct, a, rows, "spread")

@@ -1,6 +1,10 @@
 """The hand-written CUDA kernels K1-K4 (K3 also as the MSM's row scans), P1
 and P2 against their plain torch versions.
 
+K1 is also held with a broadcast operand read in place, and its own kernels
+K1-pow (the exponentiation) and K1-prefix (the prefix product) at lengths
+around K1-prefix's tile.
+
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
@@ -11,6 +15,7 @@ checked on the card too: the constraint checker against itself on the CPU,
 and the key artifacts saved and loaded back on the card.
 """
 
+import math
 import os
 import random
 import re
@@ -188,12 +193,47 @@ def test_k2_k3_k4_kernels_match_plain(cuda):
 def test_kernel_wrappers_reject_bad_arguments(cuda):
     fc = vecfield.consts(ALL_FIELDS[0])
     a = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    off = torch.zeros(4 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(4, 8)
+    before = cuda_mont.LAUNCHES["mont_mul"]
     with pytest.raises(TypeError):
         cuda_mont.mont_mul(fc, a.long(), a.long())
     with pytest.raises(ValueError):
         cuda_mont.mont_mul(fc, a.t().contiguous().t(), a)
     with pytest.raises(ValueError):
         cuda_mont.mont_mul(fc, a, a[:2])
+    with pytest.raises(ValueError):  # 4 bytes past a 16-byte boundary
+        cuda_mont.mont_mul(fc, off, a)
+    with pytest.raises(ValueError):  # 3 rows do not divide 4 elements
+        cuda_mont.mont_mul(fc, a, a[:3], "cycle")
+    with pytest.raises(ValueError):
+        cuda_mont.mont_mul(fc, a, a[:2], "spread")
+    assert cuda_mont.LAUNCHES["mont_mul"] == before
+
+
+@pytest.mark.cuda
+def test_k1_reads_a_broadcast_operand_in_place(cuda):
+    fc = vecfield.consts(ALL_FIELDS[1])
+    pairs = [((1 << 14, 8), (8,)), ((3, 4099, 8), (4099, 8)), ((7, 4099, 8), (7, 1, 8)),
+             ((2, 3, 37, 8), (2, 3, 1, 8)), ((37, 8), (37, 8)), ((5, 1, 8), (1, 37, 8))]
+    for sa, sb in pairs:
+        a = mont_layout.random_elements(fc, math.prod(sa[:-1]), 6, cuda).view(sa)
+        b = mont_layout.random_elements(fc, math.prod(sb[:-1]), 7, cuda).view(sb)
+        want = cuda_mont.mont_mul_plain(fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
+        for x, y in ((a, b), (b, a)):
+            before = cuda_mont.LAUNCHES["mont_mul"]
+            got = vecfield.mont_mul(fc, x, y)
+            assert cuda_mont.LAUNCHES["mont_mul"] == before + 1
+            assert torch.equal(got, want), (sa, sb)
+
+
+@pytest.mark.cuda
+def test_k1_block_size_spreads_small_launches_over_the_sms(cuda):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (1, 33, 4096, 16384, 32772, 1 << 20):
+        t = cuda_build.library().h2r_mont_mul_threads(n)
+        assert t in (32, 64, 128, 256), (n, t)
+        assert t == 32 or -(-n // t) >= sms, (n, t)
+        assert t == 256 or -(-n // (2 * t)) < sms, (n, t)
 
 
 @pytest.mark.cuda
