@@ -318,7 +318,8 @@ def _parity_k1(report, kernels):
     for shape_a, shape_b in K1_BCAST_PARITY:
         a = mont_layout.random_elements(fc, math.prod(shape_a[:-1]), 41, "cuda").view(shape_a)
         b = mont_layout.random_elements(fc, math.prod(shape_b[:-1]), 42, "cuda").view(shape_b)
-        want = cuda_mont.mont_mul_plain(fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
+        want = cuda_mont.mont_mul_plain(
+            fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
         for x, y in ((a, b), (b, a)):
             err = _max_abs_err(vecfield.mont_mul(fc, x, y), want)
             if err:
@@ -1415,9 +1416,9 @@ def phase_k1_prefix(report, kernels):
         r["calls_per_warm_prove"] = hist[r["rows"], r["n"], r["reverse"]]
         r["launches_per_call"] = cuda_mont.prefix_launches(r["n"])
         r["launches_per_warm_prove"] = r["calls_per_warm_prove"] * r["launches_per_call"]
-        line(f"[6 K1-prefix] path rows={r['rows']} n={r['n']} reverse={r['reverse']}: bitwise equal "
-             f"| card {r['ms']:.4f} ms per call ({r['launches_per_call']} launches), host-paced "
-             f"{r['host_paced_ms']:.4f} ms"
+        line(f"[6 K1-prefix] path rows={r['rows']} n={r['n']} reverse={r['reverse']}: bitwise "
+             f"equal | card {r['ms']:.4f} ms per call ({r['launches_per_call']} launches), "
+             f"host-paced {r['host_paced_ms']:.4f} ms"
              + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
              + f" | {r['calls_per_warm_prove']} calls per warm prove")
     report["k1_prefix"] = dict(shapes=out)

@@ -22,20 +22,6 @@ struct FieldP {
   uint32_t n0inv;  // -p^-1 mod 2^32
 };
 
-__device__ __forceinline__ void fe_load(const uint32_t* __restrict__ src, long long i,
-                                        uint32_t r[H2R_LIMBS]) {
-  const uint32_t* s = src + i * H2R_LIMBS;
-#pragma unroll
-  for (int j = 0; j < H2R_LIMBS; ++j) r[j] = s[j];
-}
-
-__device__ __forceinline__ void fe_store(uint32_t* __restrict__ dst, long long i,
-                                         const uint32_t r[H2R_LIMBS]) {
-  uint32_t* d = dst + i * H2R_LIMBS;
-#pragma unroll
-  for (int j = 0; j < H2R_LIMBS; ++j) d[j] = r[j];
-}
-
 // element i as two 16-byte vectors (src and dst 16-byte aligned)
 __device__ __forceinline__ void fe_load16(const uint32_t* src, long long i, uint32_t r[H2R_LIMBS]) {
   const uint4* s = reinterpret_cast<const uint4*>(src + i * H2R_LIMBS);
@@ -44,7 +30,8 @@ __device__ __forceinline__ void fe_load16(const uint32_t* src, long long i, uint
   r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
 }
 
-__device__ __forceinline__ void fe_store16(uint32_t* dst, long long i, const uint32_t r[H2R_LIMBS]) {
+__device__ __forceinline__ void fe_store16(uint32_t* dst, long long i,
+                                           const uint32_t r[H2R_LIMBS]) {
   uint4* d = reinterpret_cast<uint4*>(dst + i * H2R_LIMBS);
   d[0] = make_uint4(r[0], r[1], r[2], r[3]);
   d[1] = make_uint4(r[4], r[5], r[6], r[7]);

@@ -36,7 +36,7 @@ __global__ void h2r_mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __
     fe_mont_one(acc, f);
   } else {
     uint32_t x[H2R_LIMBS];
-    fe_load(a, i, x);
+    fe_load16(a, i, x);
     fe_reduce(x, f);  // a canonical base makes e = 1 canonical too
 #pragma unroll
     for (int j = 0; j < H2R_LIMBS; ++j) acc[j] = x[j];
@@ -46,7 +46,7 @@ __global__ void h2r_mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __
       if ((e.w[b >> 5] >> (b & 31)) & 1u) fe_mul(acc, x, acc, f);
     }
   }
-  fe_store(out, i, acc);
+  fe_store16(out, i, acc);
 }
 
 extern "C" int h2r_mont_pow(const void* a, void* out, long long n, const uint32_t* e_host,

@@ -12,10 +12,11 @@ launch (``csrc/mont_pow.cu``; the JAX package's ``vecfield._pow_bits``), and
 :func:`mont_prefix`, a prefix (or suffix) product along a row in at most
 three launches (``csrc/mont_scan.cu``; its ``_hs_scan`` of K1 products).
 
-:func:`mont_mul` takes two ``(..., 8)`` int32 tensors of one shape (the
-int32 bit pattern is the uint32 limb). On a CUDA tensor it launches the
-kernel; on a CPU tensor it runs :func:`mont_mul_plain`, the same function in
-plain torch ops. There is no size threshold and no fallback.
+:func:`mont_mul` takes ``(..., 8)`` int32 tensors (the int32 bit pattern
+is the uint32 limb), b of a's shape or a's broadcast rows. On a CUDA tensor
+each wrapper launches its kernel; on a CPU tensor it runs its ``*_plain``
+version, the same function in plain torch ops. There is no size threshold
+and no fallback.
 
 The plain version widens to int64 and works on 16 x 16-bit limbs (torch has
 no 64-bit-wide product of two 32-bit limbs in int64 without overflow):
@@ -187,11 +188,6 @@ def mont_pow_plain(fc, a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
-# ---------------------------------------------------------------------------
-# the CUDA kernel
-# ---------------------------------------------------------------------------
-
-
 def hs_scan(op, fill: torch.Tensor, vals: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive Hillis-Steele scan along axis -2 of (..., N, 8) (the
     suffix scan when ``reverse``); ``fill`` is op's identity row (8,)."""
@@ -219,6 +215,11 @@ def prefix_launches(n: int) -> int:
     """K1-prefix's launches per call for rows of n elements: one when a row
     fits in one tile, else three (tile totals, their scan, the tiles)."""
     return 1 if n <= PREFIX_TILE else 3
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
 
 
 def limbs_arg(x: int):
@@ -304,14 +305,16 @@ def mont_pow(fc, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e over a (..., 8) int32 tensor for one exponent 0 <= e < 2^256;
     Montgomery in and out (e = 0 gives Montgomery 1, 0^e = 0 for e > 0).
 
-    CUDA tensor: one launch of K1-pow on the current stream (one thread per
-    element, the whole square-and-multiply in registers). CPU tensor:
-    :func:`mont_pow_plain`."""
+    CUDA tensor (16-byte aligned): one launch of K1-pow on the current
+    stream (one thread per element, the whole square-and-multiply in
+    registers). CPU tensor: :func:`mont_pow_plain`."""
     if not 0 <= e < 1 << 256:
         raise ValueError(f"exponent {e} is outside [0, 2^256)")
     if a.device.type == "cpu":
         return mont_pow_plain(fc, a, e)
     check_kernel_args(a)
+    if a.data_ptr() % 16:
+        raise ValueError("K1-pow's tensor must be 16-byte aligned")
     from ..utils.cuda_build import library
 
     out = torch.empty_like(a)

@@ -86,6 +86,9 @@ def test_k1_pow_wrapper_rejects_bad_arguments(cuda):
         cuda_mont.mont_pow(fc, a.t().contiguous().t(), 5)
     with pytest.raises(ValueError):
         cuda_mont.mont_pow(fc, a[:, :4], 5)
+    off = torch.zeros(4 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(4, 8)
+    with pytest.raises(ValueError):  # 4 bytes past a 16-byte boundary
+        cuda_mont.mont_pow(fc, off, 5)
     for e in (-1, 1 << 256):
         with pytest.raises(ValueError):
             cuda_mont.mont_pow(fc, a, e)
@@ -218,7 +221,8 @@ def test_k1_reads_a_broadcast_operand_in_place(cuda):
     for sa, sb in pairs:
         a = mont_layout.random_elements(fc, math.prod(sa[:-1]), 6, cuda).view(sa)
         b = mont_layout.random_elements(fc, math.prod(sb[:-1]), 7, cuda).view(sb)
-        want = cuda_mont.mont_mul_plain(fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
+        want = cuda_mont.mont_mul_plain(
+            fc, *[t.contiguous() for t in torch.broadcast_tensors(a, b)])
         for x, y in ((a, b), (b, a)):
             before = cuda_mont.LAUNCHES["mont_mul"]
             got = vecfield.mont_mul(fc, x, y)
