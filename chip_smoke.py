@@ -69,7 +69,22 @@ the script exits non-zero without its final line):
     shape the flagship's warm prove does not launch (the fixed-base set-up,
     keygen, the checker, the MSM's point-axis segments, k=17's NTT stages)
     and each kernel's largest held bitwise against its plain version, on the
-    inputs of a second run of the path (``sha.held``).
+    inputs of a second run of the path (``sha.held``);
+12. batched witness replay (``witness.WitnessProgram``): BASELINE config #1
+    at its batch of 256 distinct instances, and 16 flagship instances under
+    one key tiled to 64, replayed on the card with the launch counts set to
+    0 before and read after (K1 and K1-pow must launch) and every launch's
+    shape recorded (``replay.*.calls``); each witness bitwise equal to
+    synthesis, 0 violations in the batched check, six corrupted config #1
+    instances against the CPU's counts; the flagship instances' trace shape
+    equal to phase 5's, and instance 0's replayed witness proven with phase
+    5's key, byte-equal to the proof of its synthesized witness, verified;
+    each replay shape that phases 6 and 11 do not hold, and each kernel's
+    largest, held bitwise on the replay's own operands; the warm split
+    (host big ops, device program, whole generate; witnesses/s), the card's
+    operations per generate (torch.profiler), and K1 at the flagship
+    replay's largest shape and K1-pow at its inversion timed on the card
+    alone (the kernels line's ``K1-replay`` and ``K1-pow-replay`` rows).
 
 Phase 5 also saves the flagship's keys (``utils.serialization``) under
 ``.keys/``, loads them back, proves byte-equal from them and runs
@@ -802,7 +817,7 @@ def phase_flagship(report, kernels):
         if v == 0:
             raise AssertionError(f"{key} was never launched on the flagship path")
     f["keys"] = _key_artifacts(report, circ, compiled, k, srs, pk, vk)
-    return dict(circ=circ, compiled=compiled)
+    return dict(circ=circ, compiled=compiled, pk=pk, vk=vk)
 
 
 KEY_SEED = 41  # the rng of the proves that compare generated and loaded keys
@@ -1991,11 +2006,11 @@ def phase_bounds(report, kernels):
 CHECK_BITS, CHECK_BATCH, CHECK_ITERS = 2048, 256, 20  # BASELINE config #1 (bench.py:34-118)
 
 
-def config1_builders() -> list:
+def config1_builders(count: int = 4) -> list:
     """bench.py's config #1: ``BigIntChip(b, 64, 2048)`` ``mul_mod`` with n
-    from ``random.Random(0)`` and a, b from seeds 0-3, the product asserted
-    equal to a fresh assignment of the answer; four real witnesses of one
-    trace shape."""
+    from ``random.Random(0)`` and a, b from seeds 0 to count - 1, the
+    product asserted equal to a fresh assignment of the answer; ``count``
+    real witnesses of one trace shape."""
     from halo2_rsa_tpu_torch.bigint import BigIntChip
     from halo2_rsa_tpu_torch.circuit import Builder
     from halo2_rsa_tpu_torch.fields import BN254_FR
@@ -2005,7 +2020,7 @@ def config1_builders() -> list:
     while n_v.bit_length() != CHECK_BITS:
         n_v = rng.getrandbits(CHECK_BITS)
     out = []
-    for seed in range(4):
+    for seed in range(count):
         r = random.Random(seed)
         a_v = r.getrandbits(CHECK_BITS) % n_v
         b_v = r.getrandbits(CHECK_BITS) % n_v
@@ -2040,20 +2055,25 @@ def config1_inputs() -> tuple:
     the (CHECK_BATCH, W, 8) witness batch on the host (the four witnesses
     tiled), and a function giving the checker's arrays on a device)."""
     import numpy as np
-    import torch
 
     from halo2_rsa_tpu_torch.circuit import checker
 
     builders = config1_builders()
     c1 = checker.compile_circuit(builders[0])
     w4 = np.stack([checker.witness_limbs(b) for b in builders])
-
-    def device_arrays(dev):
-        idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
-        coef = torch.from_numpy(c1.coef_table).to(dev)[idx(c1.gate_coef_id)]
-        return idx(c1.gate_idx), coef, [(bits, idx(i)) for bits, i in c1.lookup_groups]
-
+    device_arrays = functools.partial(checker_arrays, c1)
     return builders, c1, np.tile(w4, (CHECK_BATCH // 4, 1, 1)), device_arrays
+
+
+def checker_arrays(compiled, dev) -> tuple:
+    """The batched checker's arrays of a compiled circuit on ``dev``: gate
+    indices, each row's coefficients, and (bits, cells) per lookup width."""
+    import numpy as np
+    import torch
+
+    idx = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
+    coef = torch.from_numpy(compiled.coef_table).to(dev)[idx(compiled.gate_coef_id)]
+    return idx(compiled.gate_idx), coef, [(bits, idx(i)) for bits, i in compiled.lookup_groups]
 
 
 def batched_check_ms(c1, wb, dev) -> tuple:
@@ -2091,6 +2111,33 @@ def batched_violations(compiled, wb, device_arrays) -> tuple:
     for bits, idx in lookups:
         lk = lk + (~checker.eval_lookup(wb[:, idx], bits)).sum(-1)
     return gates, lk
+
+
+def corrupted_counts(compiled, wb, device_arrays, bad: dict, label: str) -> list:
+    """A copy of the (B, W, 8) witness batch ``wb`` on the card with the
+    instances of ``bad`` ({instance: corrupted values}) replaced, checked in
+    one batched pass (``batched_violations``): each corrupted instance's
+    (gate, lookup) counts must equal ``checker.check`` of its values on the
+    CPU, and every other instance must have none. Returns the corrupted
+    instances' counts, in the order of ``bad``."""
+    import torch
+
+    from halo2_rsa_tpu_torch.circuit import checker
+
+    wbad = wb.clone()
+    for inst, vals in bad.items():
+        wbad[inst] = torch.from_numpy(checker.witness_limbs(vals)).to(wb.device)
+    g_bad, l_bad = batched_violations(compiled, wbad, device_arrays)
+    g_bad, l_bad = g_bad.cpu().tolist(), l_bad.cpu().tolist()
+    for inst in range(wb.shape[0]):
+        if inst in bad:
+            want = checker.check(compiled, checker.witness_limbs(bad[inst]), device="cpu")
+            got = (g_bad[inst], l_bad[inst])
+            if got != (want["gate_violations"], want["lookup_violations"]) or want["ok"]:
+                raise AssertionError(f"{label} instance {inst}: card {got}, cpu {want}")
+        elif g_bad[inst] or l_bad[inst]:
+            raise AssertionError(f"{label} instance {inst} (not corrupted) has violations")
+    return [[g_bad[i], l_bad[i]] for i in bad]
 
 
 def phase_checker(report, kernels, flagship):
@@ -2143,10 +2190,8 @@ def phase_checker(report, kernels, flagship):
     builders, c1, w, device_arrays = config1_inputs()
     out["config1_build_s"] = time.perf_counter() - t0
     bad_ids = sorted(int(i) for i in rng.choice(CHECK_BATCH, 6, replace=False))
-    wbad = w.copy()
-    for i, inst in enumerate(bad_ids):
-        b = builders[inst % 4]
-        wbad[inst] = checker.witness_limbs(corrupt(b, rng, gates=i % 3 + 1, lookups=i % 2 + 1))
+    bad = {inst: corrupt(builders[inst % 4], rng, gates=i % 3 + 1, lookups=i % 2 + 1)
+           for i, inst in enumerate(bad_ids)}
     dev = device_arrays("cuda")
     wb = torch.from_numpy(w).cuda()
     torch.cuda.synchronize()
@@ -2159,16 +2204,7 @@ def phase_checker(report, kernels, flagship):
         raise AssertionError("a valid config #1 instance has violations on the card")
     if k1_per_check == 0:
         raise AssertionError("K1 was never launched by the batched check")
-    g_bad, l_bad = batched_violations(c1, torch.from_numpy(wbad).cuda(), dev)
-    g_bad, l_bad = g_bad.cpu().tolist(), l_bad.cpu().tolist()
-    for inst in range(CHECK_BATCH):
-        if inst in bad_ids:
-            want = checker.check(c1, wbad[inst], device="cpu")
-            got = (g_bad[inst], l_bad[inst])
-            if got != (want["gate_violations"], want["lookup_violations"]) or want["ok"]:
-                raise AssertionError(f"config #1 instance {inst}: card {got}, cpu {want}")
-        elif g_bad[inst] or l_bad[inst]:
-            raise AssertionError(f"config #1 instance {inst} (not corrupted) has violations")
+    bad_counts = corrupted_counts(c1, wb, dev, bad, "config #1")
     ms, wall_ms, (gates, lk) = batched_check_ms(c1, wb, dev)
     if int(gates.sum()) or int(lk.sum()):
         raise AssertionError("a valid config #1 instance has violations on the card")
@@ -2176,7 +2212,7 @@ def phase_checker(report, kernels, flagship):
     out.update(
         config1=dict(bits=CHECK_BITS, batch=CHECK_BATCH, gate_rows=int(c1.num_gates),
                      witness=int(c1.num_witness), lookups=int(c1.num_lookups),
-                     corrupted=bad_ids, corrupted_counts=[[g_bad[i], l_bad[i]] for i in bad_ids],
+                     corrupted=bad_ids, corrupted_counts=bad_counts,
                      iters=CHECK_ITERS, ms_per_batch=ms, wall_ms_per_batch=wall_ms,
                      checks_per_s=CHECK_BATCH / (ms / 1e3), k1_launches_per_check=k1_per_check,
                      k1_products_per_launch=[CHECK_BATCH * c1.num_witness, products],
@@ -2223,12 +2259,13 @@ def _size(key: str, shape) -> int:
     return shape[0] * (shape[1] if len(shape) > 1 and key != "K1" else 1)
 
 
-def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
-    """Each shape of ``hist`` (a path's launches, ``_calls_of``) that is not
-    in ``covered`` (the flagship's warm-prove shapes, which phase 6 holds),
-    and each kernel's largest, held bitwise against its plain version on
-    the path's own inputs: those of the first launch at that shape in a
-    second run of the path (``keep``). Returns one row per shape held."""
+def _hold_path_calls(keep: dict, hist: dict, covered: dict, path: str) -> list:
+    """Each shape of ``hist`` (a path's launches, ``_calls_of``; kernels the
+    path launched) that is not in ``covered`` (shapes an earlier phase
+    holds), and each kernel's largest, held bitwise against its plain
+    version on the path's own inputs: those of the first launch at that
+    shape in a second run of the path (``keep``). Returns one row per shape
+    held."""
     import torch
 
     out = []
@@ -2244,12 +2281,23 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict) -> list:
             torch.cuda.synchronize()
             err = _max_abs_err(got, want)
             if err:
-                raise AssertionError(f"{key} at {shape} on the RSA-1024 SHA-64 path differs "
-                                     f"from its plain version")
+                raise AssertionError(f"{key} at {shape} on the {path} path differs from its "
+                                     f"plain version")
             out.append(dict(kernel=key, shape=list(shape), launches=shapes[shape],
                             new=shape not in covered[key], largest=shape == largest,
                             max_abs_err=err, plain_s=time.perf_counter() - t0))
     return out
+
+
+def warm_prove_shapes(report) -> dict:
+    """{kernel: the shapes one flagship warm prove launches it with}, which
+    phase 6 holds against the plain versions."""
+    flag = report["flagship"]
+    covered = {key: {tuple(c[:-1]) for c in v} for key, v in flag["g1_calls_per_warm_prove"].items()}
+    covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
+    covered["K1-pow"] = {tuple(c[:-1]) for c in flag["k1_pow_calls_per_warm_prove"]}
+    covered["K1-prefix"] = {tuple(c[:-1]) for c in flag["k1_prefix_calls_per_warm_prove"]}
+    return covered
 
 
 def sha_circuit() -> tuple:
@@ -2342,12 +2390,7 @@ def phase_sha(report, kernels):
     t0 = time.perf_counter()
     _calls_of(path, keep)
     hist = {key: {tuple(c[:-1]): c[-1] for c in v} for key, v in calls.items()}
-    flag = report["flagship"]
-    covered = {key: {tuple(c[:-1]) for c in v} for key, v in flag["g1_calls_per_warm_prove"].items()}
-    covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
-    covered["K1-pow"] = {tuple(c[:-1]) for c in flag["k1_pow_calls_per_warm_prove"]}
-    covered["K1-prefix"] = {tuple(c[:-1]) for c in flag["k1_prefix_calls_per_warm_prove"]}
-    out["held"] = _hold_path_calls(keep, hist, covered)
+    out["held"] = _hold_path_calls(keep, hist, warm_prove_shapes(report), "RSA-1024 SHA-64")
     del keep
     out["held_s"] = time.perf_counter() - t0
     for key in hist:
@@ -2361,6 +2404,329 @@ def phase_sha(report, kernels):
              f"(each of those and the largest, {list(big)} x {hist[key][big]} launches)")
     line(f"[11 sha] the path again with first launches copied, and {len(out['held'])} shapes "
          f"held: {out['held_s']:.1f} s")
+
+
+REPLAY_C1_BATCH = 256  # BASELINE config #1's batch: 256 distinct mul_mod-2048 instances
+REPLAY_DISTINCT, REPLAY_BATCH = 16, 64  # flagship instances under one key, tiled to the batch
+
+
+def replay_instances(template, builders) -> list:
+    """Each builder's input values keyed by the template's input cells (the
+    instances ``WitnessProgram.generate`` takes)."""
+    return [{i: b.values[i] for i in template.input_cells()} for b in builders]
+
+
+def replay_flagship_circuits(count: int) -> list:
+    """``count`` RSA-1024 SHA-disabled instances under the flagship's key
+    (``sign_fixture(1024, msg, rng=random.Random(7))``), message s a 32 B
+    message from random.Random(s), s = 0 .. count - 1."""
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
+
+    out = []
+    for s in range(count):
+        msg = bytes(random.Random(s).randrange(256) for _ in range(32))
+        n, sig = sign_fixture(1024, msg, rng=random.Random(7))
+        hashed = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+        out.append(Pkcs1v15Circuit.build(1024, n, sig, hashed_msg=hashed))
+    return out
+
+
+def same_structure(a, b) -> bool:
+    """Whether two compiled circuits have one trace shape (gate indices,
+    coefficient ids and table, lookup groups, instance cells): a witness of
+    one is proven with the other's key."""
+    import numpy as np
+
+    return (np.array_equal(a.gate_idx, b.gate_idx)
+            and np.array_equal(a.gate_coef_id, b.gate_coef_id)
+            and np.array_equal(a.coef_table, b.coef_table)
+            and np.array_equal(a.instance_idx, b.instance_idx)
+            and len(a.lookup_groups) == len(b.lookup_groups)
+            and all(x[0] == y[0] and np.array_equal(x[1], y[1])
+                    for x, y in zip(a.lookup_groups, b.lookup_groups)))
+
+
+def device_ops(run) -> dict:
+    """``run()`` under torch.profiler (the card's activity only): the
+    operations on the card (kernels and copies) and their device time,
+    against the host's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = dev_us = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            ops += ev.count
+            dev_us += us
+    return dict(device_ops=ops, device_s=dev_us / 1e6, profiled_wall_s=wall,
+                busy_share=dev_us / 1e6 / wall)
+
+
+def replay_on_card(label: str, prog, insts, want, compiled, covered) -> tuple:
+    """One configuration of phase 12: ``prog`` (a ``WitnessProgram``) over
+    ``insts`` on the card (host big ops, then the device program), with
+    every launch counter at 0 before and read after (K1 and K1-pow must
+    launch) and each launch's shape recorded (``_calls_of``); each witness
+    bitwise equal to ``want[i]`` (synthesis) and 0 violations in one batched
+    check. Then the path again with first launches copied, each shape that
+    ``covered`` lacks and each kernel's largest held bitwise
+    (``_hold_path_calls``); then warm: host big ops, the device program
+    (synchronised) and the whole ``generate``, a generate plus the batched
+    check, and one device program under torch.profiler. Returns (the
+    record, the device witnesses of the first run)."""
+    import numpy as np
+    import torch
+
+    batch = len(insts)
+    steps = {}
+    t_step = [time.perf_counter()]
+
+    def tick(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    def on_card():
+        inputs, bigvals = prog.host_inputs(insts)
+        return prog.run(torch.from_numpy(inputs).cuda(), torch.from_numpy(bigvals).cuda())
+
+    reset_launch_counts()
+    got = []
+    calls = _calls_of(lambda: got.append(on_card()))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for key in ("K1", "K1-pow"):
+        if launches[key] == 0:
+            raise AssertionError(f"{key} was never launched by the {label} replay")
+    wd = got[0]
+    w = wd.cpu().numpy()
+    for i in range(batch):
+        if not np.array_equal(w[i], want[i]):
+            raise AssertionError(f"{label}: replayed witness {i} differs from synthesis")
+    tick("path")
+    arrays = checker_arrays(compiled, "cuda")
+    gates, lk = batched_violations(compiled, wd, arrays)
+    if int(gates.sum()) or int(lk.sum()):
+        raise AssertionError(f"{label}: a replayed witness has violations on the card")
+    tick("compare_check")
+
+    keep = {}
+    _calls_of(on_card, keep)
+    tick("path_copied")
+    hist = {key: {tuple(c[:-1]): c[-1] for c in v} for key, v in calls.items() if v}
+    held = _hold_path_calls(keep, hist, covered, f"{label} replay")
+    del keep
+    tick("held")
+
+    t0 = time.perf_counter()
+    inputs, bigvals = prog.host_inputs(insts)
+    host_s = time.perf_counter() - t0
+    xi, xb = torch.from_numpy(inputs).cuda(), torch.from_numpy(bigvals).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog.run(xi, xb)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog.generate(insts)
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gates, lk = batched_violations(compiled, on_card(), arrays)
+    if int(gates.sum()) or int(lk.sum()):
+        raise AssertionError(f"{label}: a replayed witness has violations on the card")
+    generate_check_s = time.perf_counter() - t0
+    tick("timed")
+    profile = device_ops(lambda: prog.run(xi, xb))
+    tick("profile")
+    out = dict(
+        batch=batch, cells=prog.num_cells, groups=len(prog.groups),
+        inputs=len(prog.input_idx), big_cells=int(bigvals.shape[1]),
+        launches={key: launches[key] for key in ("K1", "K1-pow", "K1-prefix")},
+        calls={key: calls[key] for key in ("K1", "K1-pow", "K1-prefix")},
+        held=held, held_s=steps["held"], host_s=host_s, device_s=device_s, whole_s=whole_s,
+        witnesses_per_s=batch / whole_s, device_witnesses_per_s=batch / device_s,
+        generate_check_s=generate_check_s, generate_check_per_s=batch / generate_check_s,
+        profile=profile, steps_s=steps)
+    return out, wd
+
+
+def _replay_lines(label: str, r: dict, smi: str) -> None:
+    k1 = {tuple(c[:-1]): c[-1] for c in r["calls"]["K1"]}
+    line(f"[12 replay] {label} per generate ({r['batch']} witnesses of {r['cells']} cells, "
+         f"{r['groups']} groups): K1 {r['launches']['K1']} launches at {len(k1)} shapes, "
+         f"{min(s_[0] for s_ in k1)} to {max(s_[0] for s_ in k1)} products; K1-pow "
+         f"{r['launches']['K1-pow']} at {[c[0] for c in r['calls']['K1-pow']]} elements; "
+         f"K1-prefix {r['launches']['K1-prefix']}; "
+         f"{r['profile']['device_ops']} operations on the card (torch.profiler), busy "
+         f"{r['profile']['busy_share'] * 100:.1f} % of the device program's wall time")
+    line(f"[12 replay] {label} warm: host big ops {r['host_s']:.3f} s, device program "
+         f"{r['device_s']:.3f} s (synchronised), whole generate {r['whole_s']:.3f} s = "
+         f"{r['witnesses_per_s']:.1f} witnesses/s ({r['device_witnesses_per_s']:.1f} for the "
+         f"device program alone); generate + batched check {r['generate_check_s']:.3f} s = "
+         f"{r['generate_check_per_s']:.1f} instances/s | {len(r['held'])} shapes held bitwise "
+         f"against the plain versions on the replay's own operands ({r['held_s']:.1f} s) | {smi}")
+
+
+def phase_replay(report, kernels, flagship):
+    """[12 replay] Batched witness replay (``witness.WitnessProgram``) on
+    the card. BASELINE config #1 at its batch of REPLAY_C1_BATCH distinct
+    instances, and REPLAY_DISTINCT flagship instances under one key tiled to
+    REPLAY_BATCH (``replay_on_card``): each witness bitwise equal to
+    synthesis, 0 violations in the batched check; six replayed config #1
+    instances corrupted, against the CPU's counts. The flagship instances'
+    trace shape must equal phase 5's; instance 0's replayed witness is
+    proven with phase 5's key, byte-equal to the proof of its synthesized
+    witness (every prover kernel launched), verified, a wrong public input
+    rejected. Then K1 at the flagship replay's largest shape and K1-pow at
+    its inversion, timed on the card alone, as two rows of the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from halo2_rsa_tpu_torch.circuit import checker
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.prover import plonk
+    from halo2_rsa_tpu_torch.witness import WitnessProgram
+
+    smi = report["device"]["smi"]
+    t_phase = time.perf_counter()
+    covered = warm_prove_shapes(report)
+    for key, v in report["sha"]["calls"].items():
+        covered[key] |= {tuple(c[:-1]) for c in v}
+    out = {}
+
+    t0 = time.perf_counter()
+    builders = config1_builders(REPLAY_C1_BATCH)
+    c1 = checker.compile_circuit(builders[0])
+    prog = WitnessProgram(builders[0])
+    want = [checker.witness_limbs(b) for b in builders]
+    setup_s = time.perf_counter() - t0
+    r1, wd = replay_on_card("config #1", prog, replay_instances(builders[0], builders), want, c1,
+                            covered)
+    rng = np.random.default_rng(31)
+    bad_ids = sorted(int(i) for i in rng.choice(REPLAY_C1_BATCH, 6, replace=False))
+    bad = {inst: corrupt(builders[inst], rng, values=vecfield.to_ints(c1.fc, wd[inst], mont=False),
+                         gates=i % 3 + 1, lookups=i % 2 + 1)
+           for i, inst in enumerate(bad_ids)}
+    t0 = time.perf_counter()
+    r1.update(synthesis_compile_s=setup_s, corrupted=bad_ids,
+              corrupted_counts=corrupted_counts(c1, wd, checker_arrays(c1, "cuda"), bad,
+                                                "replayed config #1"))
+    r1["steps_s"]["corrupted"] = time.perf_counter() - t0
+    out["config1"] = r1
+    del wd
+    line(f"[12 replay] config #1 (mul_mod-2048): {REPLAY_C1_BATCH} distinct instances "
+         f"synthesized and compiled in {setup_s:.1f} s; replayed on the card, each witness "
+         f"bitwise equal to synthesis, 0 violations in the batched check; {len(bad_ids)} "
+         f"corrupted replayed instances' gate/lookup counts {r1['corrupted_counts']} equal the "
+         f"CPU's")
+    _replay_lines("config #1", r1, smi)
+
+    t0 = time.perf_counter()
+    circs = replay_flagship_circuits(REPLAY_DISTINCT)
+    compiled = flagship["compiled"]
+    for s, c in enumerate(circs):
+        if not same_structure(c.compile(), compiled):
+            raise AssertionError(f"flagship instance {s}'s trace shape differs from phase 5's")
+    template = circs[0].builder
+    prog = WitnessProgram(template)
+    synth = [checker.witness_limbs(c.builder) for c in circs]
+    setup_s = time.perf_counter() - t0
+    insts = replay_instances(template, [circs[i % REPLAY_DISTINCT].builder
+                                        for i in range(REPLAY_BATCH)])
+    rf, wd = replay_on_card("flagship", prog, insts,
+                            [synth[i % REPLAY_DISTINCT] for i in range(REPLAY_BATCH)], compiled,
+                            covered)
+    rf["synthesis_compile_s"] = setup_s
+    line(f"[12 replay] flagship (RSA-1024, SHA disabled): {REPLAY_DISTINCT} distinct instances "
+         f"under one key, signed, synthesized and compiled in {setup_s:.1f} s, trace shape equal "
+         f"to phase 5's; {REPLAY_BATCH} replayed on the card (tiled), each bitwise equal to "
+         f"synthesis, 0 violations in the batched check")
+    _replay_lines("flagship", rf, smi)
+
+    # instance 0's replayed witness, proven with phase 5's key
+    pk, vk = flagship["pk"], flagship["vk"]
+    pubs = circs[0].public_inputs
+    w0 = wd[0].cpu().numpy()
+    del wd
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = plonk.prove(pk, w0, pubs, rng=random.Random(KEY_SEED))
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    prove_launches = launch_counts()
+    unused = [key for key, v in prove_launches.items() if v == 0]
+    if unused:
+        raise AssertionError(f"the prove from a replayed witness never launched {unused}")
+    if proof != plonk.prove(pk, circs[0].builder.values, pubs, rng=random.Random(KEY_SEED)):
+        raise AssertionError("the proof from the replayed witness differs from the synthesized "
+                             "witness's")
+    if len(proof) != 2272 or not plonk.verify(vk, proof, pubs):
+        raise AssertionError("the proof from the replayed witness does not verify")
+    bad_pubs = list(pubs)
+    bad_pubs[0] += 1
+    if plonk.verify(vk, proof, bad_pubs):
+        raise AssertionError("verify accepted a wrong public input for the replayed witness")
+    rf["steps_s"]["prove_compare_verify"] = time.perf_counter() - t0
+    rf.update(prove_s=prove_s, prove_launches=prove_launches,
+              proof_sha256=hashlib.sha256(proof).hexdigest())
+    out["flagship"] = rf
+    line(f"[12 replay] flagship instance 0 proven from its replayed witness with phase 5's key "
+         f"(random.Random({KEY_SEED})) in {prove_s:.3f} s: {len(proof)} B, byte-equal to the "
+         f"proof of its synthesized witness, verified, a wrong public input rejected | launches "
+         + ", ".join(f"{k_}={v}" for k_, v in prove_launches.items()))
+
+    # K1 at the flagship replay's largest shape and K1-pow at its inversion,
+    # each held above on the replay's own operands
+    fc = compiled.fc
+    e = fc.field.p - 2
+    sass = report["sass"]
+    held = {r["kernel"]: r for r in rf["held"] if r["largest"]}
+    n, nb, mode = held["K1"]["shape"]
+    row = k1_times(lambda x, y: vecfield.mont_mul(fc, x, y), [("replay", n, nb, mode)])[0]
+    row.update(shape_bound(report, *_k1_part(sass, row)))
+    kernels["K1-replay"] = dict(
+        name="mont_mul", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont.cu",
+        replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", launches=rf["launches"]["K1"],
+        max_abs_err=held["K1"]["max_abs_err"], ms=row["ms"],
+        plain_ms=held["K1"]["plain_s"] * 1e3, bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=None, timing="queued",
+        shape=f"{n} products, {nb} rows of b ({K1_MODES[mode]}): the flagship replay's largest "
+              f"(batch {REPLAY_BATCH}); launches per generate")
+    pn = held["K1-pow"]["shape"][0]
+    prow = k1_pow_times(lambda x: cuda_mont.mont_pow(fc, x, e), [("replay", pn)])[0]
+    prow.update(shape_bound(report, *_pow_part(sass, prow)))
+    kernels["K1-pow-replay"] = dict(
+        name="mont_pow", route="cuda", source="halo2_rsa_tpu_torch/csrc/mont_pow.cu",
+        replaces="halo2_rsa_tpu/fields/pallas_mont.py:112", launches=rf["launches"]["K1-pow"],
+        max_abs_err=held["K1-pow"]["max_abs_err"], ms=prow["ms"],
+        plain_ms=held["K1-pow"]["plain_s"] * 1e3, bound_ms=prow["bound_ms"],
+        bound_by=prow["bound_by"], library_ms=None, timing="queued",
+        shape=f"{pn} elements, e = p - 2 over BN254 Fr (the flagship replay's inv0 group at "
+              f"batch {REPLAY_BATCH}); launches per generate")
+    out["k1"], out["k1_pow"] = row, prow
+    for key in ("K1-replay", "K1-pow-replay"):
+        k = kernels[key]
+        line(f"[12 replay] {key}: {k['shape']}: card {k['ms']:.4f} ms vs bound "
+             f"{k['bound_ms']:.4f} ms ({k['bound_by']}) = {k['bound_ms'] / k['ms'] * 100:.1f} % "
+             f"of bound, plain {k['plain_ms']:.1f} ms, {k['launches']} launches per generate")
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["replay"] = out
+    line(f"[12 replay] phase {out['phase_s']:.1f} s | steps (s): " + "; ".join(
+        f"{cfg} " + ", ".join(f"{k_} {v:.1f}" for k_, v in out[cfg]["steps_s"].items())
+        for cfg in ("config1", "flagship")))
 
 
 def main() -> int:
@@ -2385,6 +2751,7 @@ def main() -> int:
     phase_bounds(report, kernels)
     phase_checker(report, kernels, flagship)
     phase_sha(report, kernels)
+    phase_replay(report, kernels, flagship)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -12,6 +12,8 @@ Layer map (one module per module of the JAX package):
   bigint/, rsa/, sha256/ — the circuit gadgets (carried)
   prover/   — curve/transcript (carried), G1 points and their CUDA kernels,
               NTT, MSM, KZG, PLONK keygen/prove/verify
+  witness/  — batched witness replay (``WitnessProgram``): one synthesis
+              replayed over a batch of instances, its products through K1
   utils/    — phase timers, the kernels' build
   bench/    — the probes: integer op rates (``vpu_ops``) and K1's memory
               layouts (``mont_layout``)
@@ -21,8 +23,8 @@ Layer map (one module per module of the JAX package):
 A CUDA tensor runs the kernels; a CPU tensor runs each kernel's plain
 PyTorch version. Entry points that make tensors (``kzg.setup``,
 ``plonk.verify``, ``msm.run_msm``, ``convert.*``, ``vecfield.from_ints``,
-...) put them on the card unless the caller passes ``device="cpu"``.
-Nothing here imports JAX.
+``WitnessProgram.generate``, ...) put them on the card unless the caller
+passes ``device="cpu"``. Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -9,11 +9,12 @@ import pytest
 import torch
 
 from halo2_rsa_tpu_torch import convert, golden
-from halo2_rsa_tpu_torch.circuit import checker
+from halo2_rsa_tpu_torch.circuit import Builder, checker
 from halo2_rsa_tpu_torch.fields import ALL_FIELDS, vecfield
 from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit
 from halo2_rsa_tpu_torch.prover import curve, g1_vec, kzg, msm, plonk
 from halo2_rsa_tpu_torch.utils import serialization
+from halo2_rsa_tpu_torch.witness import WitnessProgram
 
 
 class _RefSRS:
@@ -38,6 +39,12 @@ def _load_or_keygen():
         serialization.load_or_keygen(_arith()[2], 5, d)
 
 
+def _replay():
+    b = Builder(ALL_FIELDS[0])
+    x = b.new_cell(0, ("in",))
+    WitnessProgram(b).generate([{x.idx: 1}])
+
+
 ENTRY_POINTS = {
     "kzg.setup": lambda: kzg.setup(4, tau=5),
     "kzg.fixed_base_mul_batch": lambda: kzg.fixed_base_mul_batch([1, 2]),
@@ -56,6 +63,7 @@ ENTRY_POINTS = {
     "checker.explain": lambda: checker.explain(_arith()[0]),
     "Pkcs1v15Circuit.check": lambda: Pkcs1v15Circuit(*_arith()[:2], bits=0).check(),
     "serialization.load_or_keygen": _load_or_keygen,
+    "WitnessProgram.generate": _replay,
 }
 
 

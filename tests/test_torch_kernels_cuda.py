@@ -10,9 +10,10 @@ marker and skip without a card (the card gate ``chip_smoke.py`` runs the
 same comparisons at the main path's shapes). Every comparison is bitwise.
 The argument checks, the CPU dispatch, the SASS loop split and a limb-level
 model of the lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's
-steps on it run everywhere. Two modules whose products run through K1 are
+steps on it run everywhere. Three modules whose products run through K1 are
 checked on the card too: the constraint checker against itself on the CPU,
-and the key artifacts saved and loaded back on the card.
+the key artifacts saved and loaded back on the card, and batched witness
+replay against itself on the CPU and a golden proof from its witness.
 """
 
 import math
@@ -977,3 +978,41 @@ def test_keys_round_trip_on_the_card(cuda, tmp_path):
     proof = plonk.prove(pk2, b.values, pubs, rng=random.Random(meta["seed"]))
     assert proof == want
     assert plonk.verify(ser.load_vk(str(tmp_path / "vk.json")), proof, pubs)
+
+
+@pytest.mark.cuda
+def test_replay_on_the_card_matches_the_cpu(cuda):
+    """Batched witness replay runs its products through K1 and its
+    inversion through K1-pow on the card, equal to the CPU's replay and to
+    synthesis; the golden ``mul_mod`` case's replayed witness proves the
+    JAX-made bytes."""
+    from halo2_rsa_tpu_torch import golden
+    from halo2_rsa_tpu_torch.circuit import Builder, MainGate, checker
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+    from halo2_rsa_tpu_torch.witness import WitnessProgram
+
+    def circuit(x, y):
+        b = Builder(ALL_FIELDS[0])
+        mg = MainGate(b)
+        a, c = mg.assign_value(x), mg.assign_value(y)
+        mg.to_bits(mg.select(a, c, mg.is_equal(a, c)), 16)
+        return b
+
+    builders = [circuit(x, y) for x, y in ((5, 5), (3, 9), (0, 0), (65535, 1))]
+    prog = WitnessProgram(builders[0])
+    insts = [{i: b.values[i] for i in builders[0].input_cells()} for b in builders]
+    before = dict(cuda_mont.LAUNCHES)
+    w = prog.generate(insts)
+    assert cuda_mont.LAUNCHES["mont_mul"] > before["mont_mul"]
+    assert cuda_mont.LAUNCHES["mont_pow"] == before["mont_pow"] + 1
+    assert (w == prog.generate(insts, device="cpu")).all()
+    for bi, b in enumerate(builders):
+        assert (w[bi] == checker.witness_limbs(b)).all()
+
+    meta, want = golden.load("mulmod_k10")
+    b, pubs = golden.build_circuit("mulmod_k10")
+    w = WitnessProgram(b).generate([{i: b.values[i] for i in b.input_cells()}])
+    assert (w[0] == checker.witness_limbs(b)).all()
+    srs = kzg.setup(meta["srs_n"], tau=meta["tau"], device=cuda)
+    pk, _ = plonk.keygen(checker.compile_circuit(b), srs, k=meta["k"])
+    assert plonk.prove(pk, w[0], pubs, rng=random.Random(meta["seed"])) == want
