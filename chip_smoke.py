@@ -84,7 +84,21 @@ the script exits non-zero without its final line):
     (host big ops, device program, whole generate; witnesses/s), the card's
     operations per generate (torch.profiler), and K1 at the flagship
     replay's largest shape and K1-pow at its inversion timed on the card
-    alone (the kernels line's ``K1-replay`` and ``K1-pow-replay`` rows).
+    alone (the kernels line's ``K1-replay`` and ``K1-pow-replay`` rows);
+13. multi-rank (``parallel``), every rank a process of its own started by
+    ``parallel.spawn`` (a deadline; any rank's failure fails the phase):
+    two ranks on this one card over gloo (collectives staged through host
+    memory) run ``entry.dryrun_multichip(2, "gloo")`` with no section
+    skipped; then the flagship with phase 5's keys saved and loaded in each
+    rank, proven with ``MeshKernels`` (1 cold + 3 warm, ``random.Random(41)``):
+    the same SHA-256 on both ranks as phase 5's single-device proof with that
+    rng, verified, a wrong public input rejected, per-rank launch counts and
+    collectives (calls, bytes, staged bytes) over one warm prove, each
+    rank's K2 and chunk-total K3-scan work 1/2 of phase 5's; config #1 by
+    ``ShardedChecker`` on meshes (2, 1) and (1, 2) and ``WireShardedChecker``
+    on (2, 1), 0 violations and the six corrupted instances' counts equal
+    to phase 10's, checks/s; then one rank over NCCL proves the flagship
+    again, byte-equal (its collectives are over one rank: trivial).
 
 Phase 5 also saves the flagship's keys (``utils.serialization``) under
 ``.keys/``, loads them back, proves byte-equal from them and runs
@@ -2247,6 +2261,8 @@ def phase_checker(report, kernels, flagship):
          f"{row['ms']:.4f} ms vs bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = "
          f"{row['bound_ms'] / row['ms'] * 100:.1f} % of bound | 0 launches per warm prove")
     report["checker"] = out
+    return dict(compiled=c1, w4=w[:4], bad={i: checker.witness_limbs(v) for i, v in bad.items()},
+                bad_counts=dict(zip(bad_ids, bad_counts)))
 
 
 SHA_BITS, SHA_MSG_LEN = 1024, 64
@@ -2729,6 +2745,141 @@ def phase_replay(report, kernels, flagship):
         for cfg in ("config1", "flagship")))
 
 
+MESH_WARM = 3  # warm mesh proves of the flagship per rank
+
+
+def _rank_lines(label: str, r: dict, smi: str) -> None:
+    coll = " ".join(f"{k} {v['calls']} calls {v['bytes']} B ({v['staged_bytes']} B staged)"
+                    for k, v in r["collectives"].items())
+    line(f"[13 multirank] {label}: keys loaded {r['load_s']:.2f} s, cold prove "
+         f"{r['cold_s']:.3f} s, warm x{len(r['warm_s'])} min {min(r['warm_s']):.3f} mean "
+         f"{sum(r['warm_s']) / len(r['warm_s']):.3f} max {max(r['warm_s']):.3f} s | launches per "
+         f"warm prove " + ", ".join(f"{k}={v}" for k, v in r["launches"].items())
+         + f" | collectives per warm prove: {coll} | {smi}")
+
+
+def _scan_work(calls: list, tree=None) -> int:
+    """Rows x length summed over a kernel's recorded calls (K2: rows x C;
+    K3-scan: rows x L of the scans with (1) or without (0) the tree)."""
+    return sum(c[0] * c[1] * c[-1] for c in calls if tree is None or c[2] == tree)
+
+
+def phase_multirank(report, flagship, config1):
+    """[13 multirank] The port's multi-rank path (``parallel``) on this
+    card: two gloo ranks (the dry run, the flagship mesh-proven from phase
+    5's saved keys, config #1's sharded checks), then one NCCL rank (the
+    flagship again). Every rank is a process of ``parallel.spawn``; a rank's
+    failure or timeout raises here."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from halo2_rsa_tpu_torch import entry
+    from halo2_rsa_tpu_torch.circuit import checker
+    from halo2_rsa_tpu_torch.parallel import launch, ranks
+    from halo2_rsa_tpu_torch.utils import serialization as ser
+
+    smi = report["device"]["smi"]
+    f5 = report["flagship"]
+    out = {}
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(2, "gloo")
+    out["dryrun"] = dict(dry, seconds=time.perf_counter() - t0)
+    if dry["skipped"]:
+        raise AssertionError(f"dryrun_multichip(2, 'gloo') skipped {dry['skipped']}")
+    line(f"[13 multirank] dryrun_multichip(2, 'gloo') on one card, every section run, "
+         f"{out['dryrun']['seconds']:.1f} s: " + ", ".join(
+             f"{k} {v:.2f} s" for k, v in dry["sections"].items()) + f" | {smi}")
+
+    circ, pk, vk = flagship["circ"], flagship["pk"], flagship["vk"]
+    keys_dir = os.path.join(HERE, ".keys")
+    os.makedirs(keys_dir, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=keys_dir)
+    try:
+        paths = {"srs": os.path.join(d, "srs.npz"), "pk": os.path.join(d, "pk.npz"),
+                 "vk": os.path.join(d, "vk.json")}
+        ser.save_srs(pk.srs, paths["srs"])
+        ser.save_pk(pk, paths["pk"])
+        ser.save_vk(vk, paths["vk"])
+        witness = checker.witness_limbs(circ.builder)
+        want_sha = f5["keys"]["proof_sha256"]
+        runs = {}
+        for label, world, backend in (("gloo x2", 2, "gloo"), ("nccl x1", 1, "nccl")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = launch.spawn(ranks.prove_from_keys, world, backend, timeout=900,
+                               args=(paths, witness, circ.public_inputs, KEY_SEED,
+                                     MESH_WARM if world > 1 else 1))
+            runs[label] = dict(seconds=time.perf_counter() - t0, ranks=[
+                {k: v for k, v in r.items() if k != "proof"} for r in res])
+            for rank, r in enumerate(res):
+                if r["sha256"] != want_sha or len(r["proof"]) != 2272:
+                    raise AssertionError(f"{label} rank {rank}: proof sha256 {r['sha256']} "
+                                         f"({len(r['proof'])} B), phase 5's {want_sha}")
+                if not (r["verified"] and r["wrong_pub_rejected"]):
+                    raise AssertionError(f"{label} rank {rank}: verified {r['verified']}, "
+                                         f"wrong public input rejected {r['wrong_pub_rejected']}")
+                if any(r["fallbacks"].values()):
+                    raise AssertionError(f"{label} rank {rank}: local fallbacks {r['fallbacks']}")
+                zero = [k for k, v in r["launches"].items() if not v]
+                if zero:
+                    raise AssertionError(f"{label} rank {rank}: {zero} never launched in a warm prove")
+                single = f5["g1_calls_per_warm_prove"]
+                for key, tree in (("K2", None), ("K3-scan", 0)):
+                    got, one = _scan_work(r["shapes"][key], tree), _scan_work(single[key], tree)
+                    if got * world != one:
+                        raise AssertionError(f"{label} rank {rank}: {key} work {got} is not 1/"
+                                             f"{world} of the single device's {one}")
+                _rank_lines(f"{label} rank {rank}", r, smi)
+        out["flagship"] = runs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    g = runs["gloo x2"]["ranks"]
+    warm5 = f5["prove_warm_s"]
+    line(f"[13 multirank] flagship k=15 mesh-proven by 2 gloo ranks on one card: sha256 "
+         f"{want_sha} on both ranks = phase 5's single-device proof (random.Random({KEY_SEED})), "
+         f"2272 B, verified, wrong public input rejected; 1 NCCL rank (its collectives over one "
+         f"rank are trivial): the same bytes | warm prove, 2 ranks: " + "; ".join(
+             f"rank {i} min {min(r['warm_s']):.3f} mean {sum(r['warm_s']) / len(r['warm_s']):.3f} "
+             f"max {max(r['warm_s']):.3f} s" for i, r in enumerate(g))
+         + f" | phase 5 single device x{len(warm5)}: min {min(warm5):.3f} mean "
+         f"{sum(warm5) / len(warm5):.3f} max {max(warm5):.3f} s | per rank K2 work "
+         f"{_scan_work(g[0]['shapes']['K2'])} = 1/2 of {_scan_work(f5['g1_calls_per_warm_prove']['K2'])}"
+         f" row-points, K3 chunk-total scans {_scan_work(g[0]['shapes']['K3-scan'], 0)} = 1/2, "
+         f"bucket-reduce scans {_scan_work(g[0]['shapes']['K3-scan'], 1)} (single device "
+         f"{_scan_work(f5['g1_calls_per_warm_prove']['K3-scan'], 1)}) | {smi}")
+
+    plan = [((2, 1), "sharded"), ((1, 2), "sharded"), ((2, 1), "wire")]
+    t0 = time.perf_counter()
+    res = launch.spawn(ranks.checker_rates, 2, "gloo", timeout=900, args=(
+        config1["compiled"], config1["w4"], CHECK_BATCH, config1["bad"], plan, CHECK_ITERS))
+    want = [sum(config1["bad_counts"][i]) for i in sorted(config1["bad"])]
+    rates = {}
+    for rank, r in enumerate(res):
+        for (shape, kind), v in r.items():
+            if v["valid"].shape != (CHECK_BATCH,) or v["valid"].any():
+                raise AssertionError(f"config #1 {kind} {shape} rank {rank}: violations "
+                                     f"{v['valid'].nonzero()}")
+            if v["bad"].tolist() != want:
+                raise AssertionError(f"config #1 {kind} {shape} rank {rank}: corrupted counts "
+                                     f"{v['bad'].tolist()}, phase 10's {want}")
+            rates[f"{kind} {shape[0]}x{shape[1]} rank {rank}"] = dict(
+                checks_per_s=v["checks_per_s"], s_per_check=v["s_per_check"], prep_s=v["prep_s"])
+    out["config1"] = dict(seconds=time.perf_counter() - t0, corrupted_counts=want, rates=rates,
+                          single_device_checks_per_s=report["checker"]["config1"]["checks_per_s"])
+    line(f"[13 multirank] config #1 (batch {CHECK_BATCH}) on 2 gloo ranks: every instance 0 "
+         f"violations, the six corrupted instances' counts {want} equal phase 10's (gate + lookup) "
+         f"| checks/s (host wall, {CHECK_ITERS} checks): " + "; ".join(
+             f"{k} {v['checks_per_s']:.1f}" for k, v in rates.items())
+         + f" | phase 10 single device {out['config1']['single_device_checks_per_s']:.1f} | {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["multirank"] = out
+    line(f"[13 multirank] phase {out['phase_s']:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     report: dict = {}
@@ -2749,9 +2900,10 @@ def main() -> int:
     phase_p1(report, kernels)
     phase_p2(report, kernels)
     phase_bounds(report, kernels)
-    phase_checker(report, kernels, flagship)
+    config1 = phase_checker(report, kernels, flagship)
     phase_sha(report, kernels)
     phase_replay(report, kernels, flagship)
+    phase_multirank(report, flagship, config1)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -125,7 +125,13 @@ def eval_gates(fc: FieldConsts, gate_idx, coef, w_mont):
     gate_idx (R, 5) int64; coef (R, 8, 8) Montgomery limbs; w_mont (..., W,
     8) — leading axes batch over witness instances sharing one trace shape.
     Returns (..., R) bool — True where the row is satisfied."""
-    ws = [w_mont[..., gate_idx[:, k], :] for k in range(5)]
+    return eval_wires(fc, coef, [w_mont[..., gate_idx[:, k], :] for k in range(5)])
+
+
+def eval_wires(fc: FieldConsts, coef, ws):
+    """The gate relation over rows whose 5 operand cells are already
+    gathered: ws[k] (..., R, 8) Montgomery limbs of operand k; coef (R, 8,
+    8). Returns (..., R) bool."""
     acc = coef[:, 7]  # q_const (Montgomery ⇒ carries the same single R factor)
     for k in range(5):
         acc = add(fc, acc, mont_mul(fc, coef[:, k], ws[k]))

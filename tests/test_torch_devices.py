@@ -7,10 +7,13 @@ import tempfile
 
 import pytest
 import torch
+import torch.distributed as dist
 
-from halo2_rsa_tpu_torch import convert, golden
+from halo2_rsa_tpu_torch import convert, entry, golden
 from halo2_rsa_tpu_torch.circuit import Builder, checker
+from halo2_rsa_tpu_torch.examples import rsa_example
 from halo2_rsa_tpu_torch.fields import ALL_FIELDS, vecfield
+from halo2_rsa_tpu_torch.parallel import MeshKernels, launch, make_mesh, ranks
 from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit
 from halo2_rsa_tpu_torch.prover import curve, g1_vec, kzg, msm, plonk
 from halo2_rsa_tpu_torch.utils import serialization
@@ -45,6 +48,17 @@ def _replay():
     WitnessProgram(b).generate([{x.idx: 1}])
 
 
+def _mesh_kernels():
+    """MeshKernels over a default mesh, in a world of one (this process's
+    gloo group, torn down after)."""
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", world_size=1, rank=0)
+        try:
+            MeshKernels(make_mesh())
+        finally:
+            dist.destroy_process_group()
+
+
 ENTRY_POINTS = {
     "kzg.setup": lambda: kzg.setup(4, tau=5),
     "kzg.fixed_base_mul_batch": lambda: kzg.fixed_base_mul_batch([1, 2]),
@@ -64,6 +78,11 @@ ENTRY_POINTS = {
     "Pkcs1v15Circuit.check": lambda: Pkcs1v15Circuit(*_arith()[:2], bits=0).check(),
     "serialization.load_or_keygen": _load_or_keygen,
     "WitnessProgram.generate": _replay,
+    "parallel.MeshKernels": _mesh_kernels,
+    "parallel.spawn": lambda: launch.spawn(ranks.stall, 1, "gloo", timeout=60, args=(-1, "raise")),
+    "entry.entry": entry.entry,
+    "entry.dryrun_multichip": lambda: entry.dryrun_multichip(2, "gloo"),
+    "examples.rsa_example.main": lambda: rsa_example.main([]),
 }
 
 
