@@ -1,0 +1,7 @@
+"""Seconds of the prover's round 2 per proof, from ``plonk.prove``'s own phases."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.per_request(run, "round2_commit")

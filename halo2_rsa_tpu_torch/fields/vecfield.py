@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import cuda_mont
 from .cuda_mont import LIMBS, carry_normalize, hs_scan, to_int32, u64
 from .field import R_BITS, PrimeField
@@ -291,7 +292,8 @@ def to_ints(fc: FieldConsts, arr, mont: bool = True) -> list[int]:
     """(..., 8) limb tensor or array -> list of Python ints (standard form
     when ``mont``)."""
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
+        with span("to_host", bytes=arr.numel() * arr.element_size()):
+            return to_ints(fc, arr.detach().cpu().numpy(), mont)
     flat = np.ascontiguousarray(arr, dtype=np.int32).reshape(-1, LIMBS).view("<u4")
     vals = [int.from_bytes(row.tobytes(), "little") for row in flat]
     if mont:

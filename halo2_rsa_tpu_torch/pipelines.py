@@ -21,6 +21,7 @@ from .fields import BN254_FR
 from .rsa import DEFAULT_E, RSAChip, RSAPubE, RSAPublicKey, RSASignature
 from .rsa.verifier import RSASignatureVerifier
 from .sha256 import Sha256Chip
+from .utils.profiling import count, span
 
 EXP_LIMB_BITS = 5
 LIMB_WIDTH = 64
@@ -48,34 +49,37 @@ class Pkcs1v15Circuit:
         expose_public: bool = True,
     ) -> "Pkcs1v15Circuit":
         """With ``msg``: full SHA-256 + verify. With ``hashed_msg``: verify a
-        pre-hashed digest (the SHA-disabled flagship shape)."""
-        b = Builder(BN254_FR)
-        rsa_chip = RSAChip(b, bits, EXP_LIMB_BITS)
-        pk = rsa_chip.assign_public_key(RSAPublicKey(n, RSAPubE.fix(DEFAULT_E)))
-        sig_a = rsa_chip.assign_signature(RSASignature(sig))
-        pubs = []
-        if msg is not None:
-            verifier = RSASignatureVerifier(rsa_chip, Sha256Chip(b))
-            is_valid, hashed_bytes = verifier.verify_pkcs1v15_signature(pk, msg, sig_a)
-            rsa_chip.main_gate.assert_one(is_valid)
-            if expose_public:
-                for limb in pk.n.limbs:
-                    b.expose_public(limb)
-                for cell in hashed_bytes:
-                    b.expose_public(cell)
-                digest = hashlib.sha256(msg).digest()
-                pubs = _n_limbs(n, bits) + list(digest)
-        else:
-            assert hashed_msg is not None
-            hashed = rsa_chip.bigint_chip.assign_integer(hashed_msg, num_limbs=4)
-            is_valid = rsa_chip.verify_pkcs1v15_signature(pk, hashed, sig_a)
-            rsa_chip.main_gate.assert_one(is_valid)
-            if expose_public:
-                for limb in pk.n.limbs:
-                    b.expose_public(limb)
-                for limb in hashed.limbs:
-                    b.expose_public(limb)
-                pubs = _n_limbs(n, bits) + _n_limbs(hashed_msg, 256)
+        pre-hashed digest (the SHA-disabled flagship shape). Span ``synth``
+        (count ``cells``)."""
+        with span("synth"):
+            b = Builder(BN254_FR)
+            rsa_chip = RSAChip(b, bits, EXP_LIMB_BITS)
+            pk = rsa_chip.assign_public_key(RSAPublicKey(n, RSAPubE.fix(DEFAULT_E)))
+            sig_a = rsa_chip.assign_signature(RSASignature(sig))
+            pubs = []
+            if msg is not None:
+                verifier = RSASignatureVerifier(rsa_chip, Sha256Chip(b))
+                is_valid, hashed_bytes = verifier.verify_pkcs1v15_signature(pk, msg, sig_a)
+                rsa_chip.main_gate.assert_one(is_valid)
+                if expose_public:
+                    for limb in pk.n.limbs:
+                        b.expose_public(limb)
+                    for cell in hashed_bytes:
+                        b.expose_public(cell)
+                    digest = hashlib.sha256(msg).digest()
+                    pubs = _n_limbs(n, bits) + list(digest)
+            else:
+                assert hashed_msg is not None
+                hashed = rsa_chip.bigint_chip.assign_integer(hashed_msg, num_limbs=4)
+                is_valid = rsa_chip.verify_pkcs1v15_signature(pk, hashed, sig_a)
+                rsa_chip.main_gate.assert_one(is_valid)
+                if expose_public:
+                    for limb in pk.n.limbs:
+                        b.expose_public(limb)
+                    for limb in hashed.limbs:
+                        b.expose_public(limb)
+                    pubs = _n_limbs(n, bits) + _n_limbs(hashed_msg, 256)
+            count(cells=b.num_witness)
         return cls(builder=b, public_inputs=pubs, bits=bits)
 
     @classmethod

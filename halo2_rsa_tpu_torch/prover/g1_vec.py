@@ -18,6 +18,7 @@ import torch
 from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS
 from ..fields.field import BN254_FQ
+from ..utils.profiling import span
 from . import cuda_g1, curve
 
 FQ = vecfield.consts(BN254_FQ)
@@ -133,8 +134,9 @@ def points_to_device(points, device="cuda") -> tuple:
 
 def points_from_device(p) -> list:
     """Projective tensors -> host affine points (or None), one transfer."""
-    stacked = torch.stack([c.reshape(-1, LIMBS) for c in p]).cpu().numpy()
-    return points_from_host_stack(stacked)
+    stacked = torch.stack([c.reshape(-1, LIMBS) for c in p])
+    with span("to_host", bytes=stacked.numel() * 4):
+        return points_from_host_stack(stacked.cpu().numpy())
 
 
 def points_from_host_stack(stacked: np.ndarray) -> list:

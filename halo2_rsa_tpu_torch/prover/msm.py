@@ -28,6 +28,7 @@ import torch
 from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS, u64
 from ..fields.field import BN254_FR
+from ..utils.profiling import span
 from . import curve, g1_vec
 from .g1_vec import (
     bucket_splice,
@@ -126,10 +127,11 @@ def _window_combine(window_sums, window_bits: int):
     """(P, W, 8) coordinates -> per-poly points (P, 8): Horner over the
     windows, most significant first."""
     p, w = window_sums[0].shape[:2]
-    res = identity((p,), device=window_sums[0].device)
-    for i in reversed(range(w)):
-        res = point_double(res, window_bits)
-        res = point_add(res, tuple(c[:, i] for c in window_sums))
+    with span("msm.combine"):
+        res = identity((p,), device=window_sums[0].device)
+        for i in reversed(range(w)):
+            res = point_double(res, window_bits)
+            res = point_add(res, tuple(c[:, i] for c in window_sums))
     return res
 
 
@@ -179,6 +181,12 @@ def msm_many(scalars: torch.Tensor, points, z_one: bool = False):
     (N, 8) Montgomery Fq coordinates. Returns a projective tuple of (P, 8).
     N is padded to the next power of two (>= 32); with ``z_one`` (every
     base point affine) the padding is the generator, else the identity."""
+    p, n = scalars.shape[:2]
+    with span("msm", polys=p, points=n):
+        return _msm_many(scalars, points, z_one)
+
+
+def _msm_many(scalars: torch.Tensor, points, z_one: bool):
     p, n = scalars.shape[:2]
     dev = scalars.device
     npow = max(32, 1 << max(0, (n - 1).bit_length()))

@@ -25,6 +25,7 @@ from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS
 from ..fields.field import BN254_FR
 from ..fields.vecfield import add, mont_mul, sub
+from ..utils.profiling import span
 
 FR = vecfield.consts(BN254_FR)
 R_MOD = BN254_FR.p
@@ -120,17 +121,18 @@ def _ntt_graph(a: torch.Tensor, log_n: int, inverse: bool, tw_full=None) -> torc
     if log_n == 0:
         return a
     half = n // 2
-    for t in range(log_n):
-        tw = tw_full[t] if tw_full is not None else _stage_twiddles(log_n, inverse, t, a.device)
-        top = a[:, :half]
-        bot = a[:, half:]
-        s = add(FR, top, bot)
-        d = mont_mul(FR, sub(FR, top, bot), tw[None])
-        a = torch.stack([s, d], dim=2).reshape(p, n, LIMBS)
-        del s, d
-    a = a[:, torch.from_numpy(_bitrev(log_n)).to(a.device)]
-    if inverse:
-        a = mont_mul(FR, a, torch.from_numpy(_n_inv_mont(log_n)).to(a.device))
+    with span("ntt", batch=p, log_n=log_n):
+        for t in range(log_n):
+            tw = tw_full[t] if tw_full is not None else _stage_twiddles(log_n, inverse, t, a.device)
+            top = a[:, :half]
+            bot = a[:, half:]
+            s = add(FR, top, bot)
+            d = mont_mul(FR, sub(FR, top, bot), tw[None])
+            a = torch.stack([s, d], dim=2).reshape(p, n, LIMBS)
+            del s, d
+        a = a[:, torch.from_numpy(_bitrev(log_n)).to(a.device)]
+        if inverse:
+            a = mont_mul(FR, a, torch.from_numpy(_n_inv_mont(log_n)).to(a.device))
     return a
 
 

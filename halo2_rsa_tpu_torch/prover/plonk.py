@@ -25,6 +25,7 @@ from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS, u64
 from ..fields.field import BN254_FR
 from ..fields.vecfield import add as _vadd, mont_mul as _vmul, sub as _vsub
+from ..utils.profiling import span
 from . import curve, g1_vec, kzg, msm, ntt
 from .transcript import Transcript, TranscriptReader
 
@@ -469,12 +470,13 @@ def _commit_batch(srs: kzg.SRS, polys_mont, kern=None) -> list:
 def _add_tails(heads, tails, g1_tail) -> list:
     """heads[i] + Σ_j tails[i·BLIND + j]·[τ^{n+j}]G1 on the host."""
     out = []
-    for i, acc in enumerate(heads):
-        for j in range(BLIND):
-            bj = tails[i * BLIND + j]
-            if bj:
-                acc = curve.g1_add(acc, curve.g1_mul(g1_tail[j], bj))
-        out.append(acc)
+    with span("commit.tails", products=sum(1 for b in tails if b)):
+        for i, acc in enumerate(heads):
+            for j in range(BLIND):
+                bj = tails[i * BLIND + j]
+                if bj:
+                    acc = curve.g1_add(acc, curve.g1_mul(g1_tail[j], bj))
+            out.append(acc)
     return out
 
 
@@ -512,10 +514,11 @@ def _open_many(pk: ProvingKey, polys_points, kern=None):
     kern = kern or _LOCAL_KERNELS
     n = polys_points[0][0].shape[0] - BLIND
     qs, vals = [], []
-    for coeffs_pad, z in polys_points:
-        q_mont, v = kzg.quotient_poly(coeffs_pad, z)
-        qs.append(q_mont)
-        vals.append(v)
+    with span("open.quotients"):
+        for coeffs_pad, z in polys_points:
+            q_mont, v = kzg.quotient_poly(coeffs_pad, z)
+            qs.append(q_mont)
+            vals.append(v)
     q_all = torch.stack(qs)
     heads_std = vecfield.from_mont(FR, q_all[:, :n])
     pts = kern.msm_many(heads_std, tuple(c[:n] for c in pk.srs.g1_powers), z_one=True)
@@ -690,11 +693,12 @@ def _round3_graph(log_ext: int, num_wires: int, num_tables: int,
                         h_polys, pi_poly, omega_scale)
     big_ext = _coset_eval_graph(big, log_ext, coset_scale, tw_fwd)
     del big
-    t_ext = _quotient_ident_ext(
-        num_wires, num_tables, big_ext, fixed_ext, sigma_ext, table_ext,
-        l0_ext, x_ext, van_inv, alpha_pows, beta_m, gamma_m, beta_lk_m,
-        kw_beta,
-    )
+    with span("round3.identities"):
+        t_ext = _quotient_ident_ext(
+            num_wires, num_tables, big_ext, fixed_ext, sigma_ext, table_ext,
+            l0_ext, x_ext, van_inv, alpha_pows, beta_m, gamma_m, beta_lk_m,
+            kw_beta,
+        )
     del big_ext
     t_coeffs = ntt._ntt_graph(t_ext[None], log_ext, True, tw_inv)[0]
     return _vmul(FR, t_coeffs, cinv_scale)
@@ -707,12 +711,16 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
 
     ``witness``: list of Python ints or a (W, 8) int32 standard-form limb
     array. ``rng``: optional random.Random for reproducible blinding;
-    defaults to OS entropy. ``phases``: optional utils.profiling.Phases.
-    ``kern``: kernel provider (default :class:`LocalKernels`)."""
-    from ..utils.profiling import Phases
+    defaults to OS entropy. ``phases``: optional utils.profiling.Phases,
+    which times each round with a device sync at its edges; without it the
+    rounds are spans alone. ``kern``: kernel provider (default
+    :class:`LocalKernels`)."""
+    with span("prove"):
+        return _prove(pk, witness, public_inputs, rng,
+                      phases.phase if phases is not None else span, kern or _LOCAL_KERNELS)
 
-    kern = kern or _LOCAL_KERNELS
-    ph = phases if phases is not None else Phases()
+
+def _prove(pk: ProvingKey, witness, public_inputs: list[int], rng, phase, kern) -> bytes:
     dev = pk.device
     vk = pk.vk
     n, k = vk.n, vk.k
@@ -729,13 +737,15 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     _absorb_vk(t, vk, pubs)
 
     # --- round 1: wire columns + lookup multiplicities -------------------
-    with ph.phase("witness", cells=len(witness)):
+    with phase("witness", cells=len(witness)):
         if isinstance(witness, np.ndarray):
             w_std = witness
         else:
             w_std = witness_limbs(list(witness))
-        w_dev = torch.from_numpy(w_std).to(dev)
-        wire_source = torch.from_numpy(pk.wire_source.astype(np.int64)).to(dev)
+        src = pk.wire_source.astype(np.int64)
+        with span("h2d", bytes=w_std.nbytes + src.nbytes):
+            w_dev = torch.from_numpy(w_std).to(dev)
+            wire_source = torch.from_numpy(src).to(dev)
         wire_std = _gather_wires(wire_source, w_dev)
         wire_mont = vecfield.to_mont(FR, wire_std)
         if num_tables:
@@ -746,7 +756,7 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
             widx = int(pk.wire_source[0, row])
             assert _limbs_to_int(w_std[widx]) == p, "public input mismatch"
 
-    with ph.phase("round1_commit"):
+    with phase("round1_commit"):
         cols = [wire_mont] + ([m_mont] if num_tables else [])
         polys_r1 = kern.intt_batch(torch.cat(cols, dim=0), k)
         blinds_r1 = _rand_blind(polys_r1.shape[0], rng, dev)
@@ -762,16 +772,17 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     beta_lk = t.challenge()
 
     # --- round 2: permutation grand product + LogUp running sums ---------
-    with ph.phase("round2_commit"):
+    with phase("round2_commit"):
         beta_m = _bcast(beta, dev)
         gamma_m = _bcast(gamma, dev)
         beta_lk_m = _bcast(beta_lk, dev)
-        a_cols, z_col, h_cols = _round2_graph(
-            wire_mont, pk.id_vals, pk.sigma_vals, num_tables,
-            beta_m, gamma_m, beta_lk_m,
-            pk.table_vals if num_tables else empty,
-            m_mont if num_tables else empty,
-        )
+        with span("round2.products"):
+            a_cols, z_col, h_cols = _round2_graph(
+                wire_mont, pk.id_vals, pk.sigma_vals, num_tables,
+                beta_m, gamma_m, beta_lk_m,
+                pk.table_vals if num_tables else empty,
+                m_mont if num_tables else empty,
+            )
         num_chunks = len(_perm_chunks(num_wires))
         polys_r2 = kern.intt_batch(torch.cat([a_cols, z_col[None], h_cols], dim=0), k)
         blinds_r2 = _rand_blind(polys_r2.shape[0], rng, dev)
@@ -786,7 +797,7 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     alpha = t.challenge()
 
     # --- round 3: quotient -------------------------------------------------
-    with ph.phase("round3_quotient"):
+    with phase("round3_quotient"):
         # PI polynomial (unblinded; the verifier recomputes it)
         pi_np = np.zeros((n, LIMBS), np.int32)
         if pubs:
@@ -831,7 +842,7 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     x = t.challenge()
 
     # --- round 4: evaluations ----------------------------------------------
-    with ph.phase("round4_evals"):
+    with phase("round4_evals"):
         def pad_to(polys, l):
             z = torch.zeros((polys.shape[0], l - polys.shape[1], LIMBS), dtype=torch.int32, device=dev)
             return torch.cat([polys, z], dim=1)
@@ -858,7 +869,7 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     t.challenge()  # u: absorbed by the verifier's fold, unused by the prover
 
     # --- round 5: GWC openings ----------------------------------------------
-    with ph.phase("round5_open"):
+    with phase("round5_open"):
         f_x = _fold_graph(polys_x, vecfield.pow_series(FR, v, polys_x.shape[0], dev))
         f_w = _fold_graph(polys_w, vecfield.pow_series(FR, v, polys_w.shape[0], dev))
         (val_x, pi_x), (val_w, pi_w) = _open_many(pk, [(f_x, x), (f_w, xw)], kern)

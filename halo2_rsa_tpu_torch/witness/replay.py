@@ -34,6 +34,7 @@ import torch
 from ..circuit.builder import Builder
 from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS, to_int32, u64
+from ..utils.profiling import span
 
 _M32 = 0xFFFFFFFF
 
@@ -339,7 +340,13 @@ class WitnessProgram:
         """The device program (the JAX module's ``_run_jit``), eagerly on the
         device of ``inputs``: (B, n_in, 8) input limbs and (B, n_big, 8)
         big-op limbs, standard form -> the (B, num_cells, 8) standard-form
-        witness limbs on that device."""
+        witness limbs on that device. A span ``replay.run`` holds one span
+        ``replay.<kind>`` a group."""
+        groups = len(self._device_program(inputs.device)["groups"])
+        with span("replay.run", groups=groups, batch=inputs.shape[0]):
+            return self._run(inputs, bigvals)
+
+    def _run(self, inputs: torch.Tensor, bigvals: torch.Tensor) -> torch.Tensor:
         fc = self.fc
         dev = inputs.device
         prog = self._device_program(dev)
@@ -357,66 +364,67 @@ class WitnessProgram:
         if bigvals.shape[1]:
             w[:, prog["big_idx"]] = bigvals
         for kind, dst, srcs, consts, meta in prog["groups"]:
-            ws = [w.index_select(1, s) for s in srcs]  # (B, G, 8) each
-            if kind == "lin":
-                a, b = ws
-                k0, k1, k2 = consts
-                v = vecfield.add(
-                    fc,
-                    k0,
-                    vecfield.add(
+            with span("replay." + kind):
+                ws = [w.index_select(1, s) for s in srcs]  # (B, G, 8) each
+                if kind == "lin":
+                    a, b = ws
+                    k0, k1, k2 = consts
+                    v = vecfield.add(
                         fc,
-                        vecfield.mont_mul(fc, k1, a),
-                        vecfield.mont_mul(fc, k2, b),
-                    ),
-                )
-            elif kind == "full":
-                a, b = ws
-                k0, k1, k2, k3 = consts
-                ab = vecfield.mont_mul(fc, a, b)  # abR^-1
-                v = vecfield.add(
-                    fc,
-                    k0,
-                    vecfield.add(
-                        fc,
+                        k0,
                         vecfield.add(
                             fc,
                             vecfield.mont_mul(fc, k1, a),
                             vecfield.mont_mul(fc, k2, b),
                         ),
-                        vecfield.mont_mul(fc, ab, k3),
-                    ),
-                )
-            elif kind == "linc":
-                v = consts[0]
-                for km, a in zip(consts[1:], ws):
-                    v = vecfield.add(fc, v, vecfield.mont_mul(fc, km, a))
-            elif kind == "mul2":
-                v = vecfield.add(fc, mulmod_std(ws[0], ws[1]), mulmod_std(ws[2], ws[3]))
-            elif kind == "mul3":
-                v = vecfield.add(fc, mulmod_std(ws[0], ws[1]), ws[2])
-            elif kind == "sel":
-                cond = ~vecfield.is_zero(ws[0])
-                v = torch.where(cond[..., None], ws[1], ws[2])
-            elif kind == "eqz":
-                z = vecfield.is_zero(ws[0])
-                v = torch.where(z[..., None], one, 0)
-            elif kind == "inv0":
-                # 0 -> 0: K1-pow's 0^(p-2) is 0
-                inv_m = vecfield.inv(fc, vecfield.to_mont(fc, ws[0]))
-                v = vecfield.from_mont(fc, inv_m)
-            elif kind == "shrmask":
-                # limb j of a >> shift is (a_{j+ls} >> bs) | (a_{j+ls+1} << (32 - bs))
-                # (32-bit limbs widened to int64; at bs = 0 the upper limb's
-                # bits land above bit 31 and the mask drops them)
-                take0, take1, bs, keep = meta
-                a = torch.nn.functional.pad(u64(ws[0]), (0, 1))  # (B, G, 9), limb 8 zero
-                v0 = torch.gather(a, 2, take0.expand(batch, -1, -1))
-                v1 = torch.gather(a, 2, take1.expand(batch, -1, -1))
-                v = to_int32(((v0 >> bs) | (v1 << (32 - bs))) & keep)
-            else:  # pragma: no cover
-                raise AssertionError(kind)
-            w.index_copy_(1, dst, v)
+                    )
+                elif kind == "full":
+                    a, b = ws
+                    k0, k1, k2, k3 = consts
+                    ab = vecfield.mont_mul(fc, a, b)  # abR^-1
+                    v = vecfield.add(
+                        fc,
+                        k0,
+                        vecfield.add(
+                            fc,
+                            vecfield.add(
+                                fc,
+                                vecfield.mont_mul(fc, k1, a),
+                                vecfield.mont_mul(fc, k2, b),
+                            ),
+                            vecfield.mont_mul(fc, ab, k3),
+                        ),
+                    )
+                elif kind == "linc":
+                    v = consts[0]
+                    for km, a in zip(consts[1:], ws):
+                        v = vecfield.add(fc, v, vecfield.mont_mul(fc, km, a))
+                elif kind == "mul2":
+                    v = vecfield.add(fc, mulmod_std(ws[0], ws[1]), mulmod_std(ws[2], ws[3]))
+                elif kind == "mul3":
+                    v = vecfield.add(fc, mulmod_std(ws[0], ws[1]), ws[2])
+                elif kind == "sel":
+                    cond = ~vecfield.is_zero(ws[0])
+                    v = torch.where(cond[..., None], ws[1], ws[2])
+                elif kind == "eqz":
+                    z = vecfield.is_zero(ws[0])
+                    v = torch.where(z[..., None], one, 0)
+                elif kind == "inv0":
+                    # 0 -> 0: K1-pow's 0^(p-2) is 0
+                    inv_m = vecfield.inv(fc, vecfield.to_mont(fc, ws[0]))
+                    v = vecfield.from_mont(fc, inv_m)
+                elif kind == "shrmask":
+                    # limb j of a >> shift is (a_{j+ls} >> bs) | (a_{j+ls+1} << (32 - bs))
+                    # (32-bit limbs widened to int64; at bs = 0 the upper limb's
+                    # bits land above bit 31 and the mask drops them)
+                    take0, take1, bs, keep = meta
+                    a = torch.nn.functional.pad(u64(ws[0]), (0, 1))  # (B, G, 9), limb 8 zero
+                    v0 = torch.gather(a, 2, take0.expand(batch, -1, -1))
+                    v1 = torch.gather(a, 2, take1.expand(batch, -1, -1))
+                    v = to_int32(((v0 >> bs) | (v1 << (32 - bs))) & keep)
+                else:  # pragma: no cover
+                    raise AssertionError(kind)
+                w.index_copy_(1, dst, v)
         return w
 
     # ------------------------------------------------------------------
@@ -426,15 +434,17 @@ class WitnessProgram:
     def host_inputs(self, instances: list[dict]) -> tuple[np.ndarray, np.ndarray]:
         """The host half of :meth:`generate`: each instance's input limbs and
         its big macro-ops evaluated in Python, as (B, n_in, 8) and
-        (B, n_big, 8) int32 standard-form limb arrays."""
+        (B, n_big, 8) int32 standard-form limb arrays (span
+        ``replay.host_inputs``)."""
         b = len(instances)
         inputs = np.zeros((b, len(self.input_idx), LIMBS), np.int32)
         bigvals = np.zeros((b, len(self._big_cells), LIMBS), np.int32)
-        for bi, inst in enumerate(instances):
-            assert set(inst.keys()) == set(self.input_idx), "input cells mismatch"
-            inputs[bi] = _int_limbs([inst[c] for c in self.input_idx])
-            bv = self._host_bigops(inst)
-            bigvals[bi] = _int_limbs([bv[c] for c in self._big_cells])
+        with span("replay.host_inputs", instances=b):
+            for bi, inst in enumerate(instances):
+                assert set(inst.keys()) == set(self.input_idx), "input cells mismatch"
+                inputs[bi] = _int_limbs([inst[c] for c in self.input_idx])
+                bv = self._host_bigops(inst)
+                bigvals[bi] = _int_limbs([bv[c] for c in self._big_cells])
         return inputs, bigvals
 
     def generate(self, instances: list[dict], device="cuda") -> np.ndarray:
@@ -443,10 +453,18 @@ class WitnessProgram:
         ``instances``: per instance a dict {input_cell_idx: int value}.
         Returns (B, num_cells, 8) int32 standard-form witness limbs, the
         layout of ``checker.witness_limbs`` (``vecfield.limbs_to_ref`` gives
-        the JAX package's (B, num_cells, 16) uint32)."""
-        inputs, bigvals = self.host_inputs(instances)
-        w = self.run(torch.from_numpy(inputs).to(device), torch.from_numpy(bigvals).to(device))
-        return w.cpu().numpy()
+        the JAX package's (B, num_cells, 16) uint32). The span
+        ``replay.generate`` holds ``replay.host_inputs``, ``replay.copy_in``,
+        ``replay.run`` and ``replay.copy_out``."""
+        b = len(instances)
+        with span("replay.generate", instances=b):
+            inputs, bigvals = self.host_inputs(instances)
+            with span("replay.copy_in", bytes=inputs.nbytes + bigvals.nbytes):
+                inputs = torch.from_numpy(inputs).to(device)
+                bigvals = torch.from_numpy(bigvals).to(device)
+            w = self.run(inputs, bigvals)
+            with span("replay.copy_out", bytes=w.numel() * w.element_size()):
+                return w.cpu().numpy()
 
 
 def _int_limbs(values) -> np.ndarray:
