@@ -16,19 +16,25 @@ the script exits non-zero without its final line):
    one launch, at 256 elements for exponents 0, 1, 2, p - 2 and a random
    253-bit one over four fields; K1-prefix, the prefix and suffix product in
    at most three launches, over rows of 1 and 3 at lengths around its tile
-   over four fields and at one row of more than tile^2), all compared
+   over four fields and at one row of more than tile^2; the NTT, one launch
+   a stage, at 2 to 2^21 elements a poly in both directions against the
+   torch stage loop, log_n launches a call and no K1 launch), all compared
    bitwise; K1 timed there (K2's, K3's and K4's times are phase 6's);
 4. the committed JAX-made golden proofs reproduced byte for byte;
 5. the flagship: RSA-1024 PKCS#1 v1.5, SHA disabled, k=15 — build, compile,
    setup, keygen, one cold and five warm proves, verify;
-6. launch counts of K1-K4 during the flagship (all must be > 0), and over
-   one warm prove (K1-pow exactly once: the one field inversion; K1-prefix
-   at most three launches per call); the shapes of every K1-K4 launch of one
-   more warm prove (``chip_smoke.json``: ``k1_calls_per_warm_prove``,
+6. launch counts of K1-K4 and the NTT during the flagship (all must be >
+   0), and over one warm prove (K1-pow exactly once: the one field
+   inversion; K1-prefix at most three launches per call; the NTT one a
+   stage); the shapes of every K1-K4 and NTT launch of one more warm prove
+   (``chip_smoke.json``: ``k1_calls_per_warm_prove``,
    ``k1_pow_calls_per_warm_prove``, ``k1_prefix_calls_per_warm_prove``,
-   ``g1_calls_per_warm_prove``); then K1 at each of its shapes, K1-pow at
-   its shapes (the inversion) and at 2^14 elements, K1-prefix at its shapes
-   (rows, length, direction), K2
+   ``ntt_calls_per_warm_prove``, ``g1_calls_per_warm_prove``); then K1 at
+   each of its shapes, K1-pow at its shapes (the inversion) and at 2^14
+   elements, K1-prefix at its shapes (rows, length, direction), the NTT at
+   its shapes (polys, log_n, direction) and at the same calls at k=18's
+   sizes (time per NTT and per stage beside its bytes bound, the torch
+   loop's time), K2
    at the shapes the flagship launches it with (one scan of C = 64 mixed
    adds per thread over the windows x chunks of one bucket pipeline) and at
    2^16 points with C = 1, K3 at its shapes and at 2^16 points, its row
@@ -214,6 +220,8 @@ SASS_NAMES = {
     "K3-scan/cluster": ("h2r_g1_scan_rows_kernel", (1,)),  # a cluster of blocks per row
     "K3-splice": ("h2r_g1_bucket_splice_kernel", ()),
     "K4": ("h2r_g1_double_kernel", ()),
+    "NTT": ("h2r_ntt_stage_kernel", (0,)),  # a stage before the last
+    "NTT/last": ("h2r_ntt_stage_kernel", (1,)),  # the last: bit-reversed store, 1/N
     "P2-lm": ("h2r_mont_mul_lm_kernel", ()),
     "P2-staged": ("h2r_mont_mul_staged_kernel", (P2_THREADS,)),
 }
@@ -239,8 +247,9 @@ def phase_build(report):
     k3_use = [u for sym, u in usage.items() if "h2r_g1_add_kernel" in sym]
     scan_use = [u for sym, u in usage.items() if "h2r_g1_scan_rows_kernel" in sym]
     splice_use = [u for sym, u in usage.items() if "h2r_g1_bucket_splice_kernel" in sym]
+    ntt_use = [u for sym, u in usage.items() if "h2r_ntt_stage_kernel" in sym]
     line(f"[2 build] ptxas: K2 {k2_use}, K3 {k3_use}, K3-scan {scan_use}, K3-splice "
-         f"{splice_use}, K4 {k4_use} | kernels that spill: {spilled or 'none'}")
+         f"{splice_use}, K4 {k4_use}, NTT {ntt_use} | kernels that spill: {spilled or 'none'}")
     listing = cuda_build.sass_listing(path)
     sass = {sym: collections.Counter(op for _, op, _ in insns) for sym, insns in listing.items()}
     names = dict(SASS_NAMES)
@@ -668,6 +677,54 @@ def _parity_splice(report, kernels):
          "chunks bitwise equal (empty buckets, one full bucket)")
 
 
+# (polys, log_n) of the NTT's parity, both directions: every stage kind at
+# the smallest sizes (log_n = 1: the last stage alone), one stage from the
+# low twiddle table on (log_n = 5, h = 2), and the extended domain at k=18
+NTT_PARITY = [(3, 1), (3, 2), (3, 5), (11, 12), (2, 21)]
+
+
+def _parity_ntt(report, kernels):
+    """The NTT kernel (``csrc/ntt.cu``) against the torch stage loop
+    (``ntt._ntt_loop``) at NTT_PARITY, forward and inverse, 0, 1 and p - 1
+    among the inputs; log_n launches a call and no K1 launch; and
+    ``ntt.ntt``/``intt`` on the card against Python ints at 2^4."""
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.fields import cuda_mont, vecfield
+    from halo2_rsa_tpu_torch.prover import ntt
+
+    fc = ntt.FR
+    worst = 0
+    for polys, log_n in NTT_PARITY:
+        x = mont_layout.random_elements(fc, polys << log_n, 45 + log_n, "cuda")
+        edge = [0, 1, fc.field.p - 1][: 1 << log_n]
+        x[: len(edge)] = vecfield.from_ints(fc, edge, device="cuda")
+        x = x.view(polys, 1 << log_n, 8)
+        for inverse in (False, True):
+            k1, before = dict(cuda_mont.LAUNCHES), ntt.LAUNCHES["ntt"]
+            got = ntt._ntt_graph(x, log_n, inverse)
+            if ntt.LAUNCHES["ntt"] - before != log_n or cuda_mont.LAUNCHES != k1:
+                raise AssertionError(f"the NTT at {polys} x 2^{log_n} made "
+                                     f"{ntt.LAUNCHES['ntt'] - before} launches (and K1 "
+                                     f"{cuda_mont.LAUNCHES} from {k1}), expected {log_n} and none")
+            err = _max_abs_err(got, ntt._ntt_loop(x, log_n, inverse))
+            if err:
+                raise AssertionError(f"the NTT at {polys} x 2^{log_n}, inverse {inverse}, differs "
+                                     f"from the torch loop")
+            worst = max(worst, err)
+    vals = [random.Random(46).randrange(fc.field.p) for _ in range(16)]
+    fwd = ntt.ntt(vecfield.from_ints(fc, vals, device="cuda"), 4)
+    if (vecfield.to_ints(fc, fwd) != ntt.ntt_host(vals)
+            or vecfield.to_ints(fc, ntt.intt(fwd, 4)) != vals):
+        raise AssertionError("the NTT on the card differs from the host DFT at 2^4")
+    kernels["NTT"] = dict(
+        name="ntt", route="cuda", source="halo2_rsa_tpu_torch/csrc/ntt.cu",
+        replaces="none: halo2_rsa_tpu/prover/ntt.py is plain jnp", max_abs_err=worst,
+        timing="queued")
+    line("[3 parity] NTT h2r_ntt: " + ", ".join(f"{p} x 2^{n}" for p, n in NTT_PARITY)
+         + ", forward and inverse, bitwise equal to the torch stage loop, log_n launches a call "
+           "and no K1 launch; 2^4 equal to the host DFT both ways")
+
+
 def phase_parity(report, kernels):
     _parity_k1(report, kernels)
     _parity_pow(report, kernels)
@@ -675,6 +732,7 @@ def phase_parity(report, kernels):
     _parity_g1(report, kernels)
     _parity_scan(report, kernels)
     _parity_splice(report, kernels)
+    _parity_ntt(report, kernels)
 
 
 def phase_golden(report):
@@ -706,17 +764,17 @@ def phase_golden(report):
 
 def reset_launch_counts() -> None:
     from halo2_rsa_tpu_torch.fields import cuda_mont
-    from halo2_rsa_tpu_torch.prover import cuda_g1
+    from halo2_rsa_tpu_torch.prover import cuda_g1, ntt
 
-    for counts in (cuda_mont.LAUNCHES, cuda_g1.LAUNCHES):
+    for counts in (cuda_mont.LAUNCHES, cuda_g1.LAUNCHES, ntt.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def launch_counts() -> dict:
-    """K1-K4's launch counters, by kernels-line row."""
+    """K1-K4's and the NTT's launch counters, by kernels-line row."""
     from halo2_rsa_tpu_torch.fields import cuda_mont
-    from halo2_rsa_tpu_torch.prover import cuda_g1
+    from halo2_rsa_tpu_torch.prover import cuda_g1, ntt
 
     return {
         "K1": cuda_mont.LAUNCHES["mont_mul"],
@@ -727,6 +785,7 @@ def launch_counts() -> dict:
         "K3-scan": cuda_g1.LAUNCHES["g1_scan"],
         "K3-splice": cuda_g1.LAUNCHES["g1_splice"],
         "K4": cuda_g1.LAUNCHES["g1_double"],
+        "NTT": ntt.LAUNCHES["ntt"],
     }
 
 
@@ -820,6 +879,7 @@ def phase_flagship(report, kernels):
     f["k1_calls_per_warm_prove"] = calls.pop("K1")
     f["k1_pow_calls_per_warm_prove"] = calls.pop("K1-pow")
     f["k1_prefix_calls_per_warm_prove"] = calls.pop("K1-prefix")
+    f["ntt_calls_per_warm_prove"] = calls.pop("NTT")
     f["g1_calls_per_warm_prove"] = calls
     report["flagship"] = f
     line("[6 launches] flagship path (setup, keygen, 1 cold + 5 warm proves, 2 verifies): "
@@ -924,15 +984,17 @@ def _calls_of(run, keep=None) -> dict:
     b, broadcast mode: 0 b of a's shape, 1 cycle, 2 repeat), K1-pow
     (elements, exponent bits), K1-prefix (rows, length, 1 reversed else 0),
     K2 (rows, C), K3 (points,), K3-scan (rows, L, 1 with the tree else 0),
-    K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings). Each
+    K3-splice (rows, buckets, npad, nchunks), K4 (points, doublings), NTT
+    (polys, log_n, 1 inverse else 0; read around ``ntt._ntt_graph``). Each
     call launches its kernel once, K1-prefix ``prefix_launches`` times (at
-    most three). The launches made inside the wrappers must add up to each
-    kernel's launch count over the same run.
+    most three), the NTT log_n times (once a stage). The launches made
+    inside the wrappers must add up to each kernel's launch count over the
+    same run.
     Given ``keep`` (a dict), the first launch at each (kernel, shape) is
     kept there as (its plain version, copies of its arguments and of its
     output)."""
     from halo2_rsa_tpu_torch.fields import cuda_mont
-    from halo2_rsa_tpu_torch.prover import cuda_g1
+    from halo2_rsa_tpu_torch.prover import cuda_g1, ntt
 
     calls = {key: collections.Counter() for key in launch_counts()}
     launched = collections.Counter()
@@ -959,12 +1021,14 @@ def _calls_of(run, keep=None) -> dict:
         (cuda_g1, "bucket_splice"): ("K3-splice", lambda fc, within, incl, ends: (
             ends.shape[0], ends.shape[1], within[0].shape[1], incl[0].shape[1])),
         (cuda_g1, "point_double"): ("K4", lambda fc, p, reps=1: (points(p[0]), reps)),
+        (ntt, "_ntt_graph"): ("NTT", lambda a, log_n, inverse, tw_full=None: (
+            a.shape[0], log_n, int(inverse))),
     }
     real = {target: getattr(*target) for target in shape_of}
 
     def recorder(target):
         key, shape_fn = shape_of[target]
-        plain = getattr(target[0], target[1] + "_plain")
+        plain = ntt._ntt_loop if key == "NTT" else getattr(target[0], target[1] + "_plain")
 
         def wrapped(*args, **kw):
             shape = shape_fn(*args, **kw)
@@ -972,7 +1036,9 @@ def _calls_of(run, keep=None) -> dict:
             before = launch_counts()[key]
             out = real[target](*args, **kw)
             made = launch_counts()[key] - before
-            if made > (3 if key == "K1-prefix" else 1):
+            if key == "NTT" and made != shape[1]:
+                raise AssertionError(f"an NTT at {shape} made {made} launches, not one a stage")
+            if key != "NTT" and made > (3 if key == "K1-prefix" else 1):
                 raise AssertionError(f"one call of {key} at {shape} made {made} launches")
             launched[key] += made
             if keep is not None and (key, shape) not in keep:
@@ -1545,6 +1611,87 @@ def k2_times(make, shapes, start, rows, plain=None) -> list:
                    host_paced_ms=chain_ms(step, s[0], K2_ITERS))
         out.append(res)
     return out
+
+
+# the k=18 cell's NTTs are the flagship's at 8x the rows: its circuit has the
+# same 8 wires and 3 lookup tables, so the same polys a call
+NTT_K18_SHIFT = 3
+# stage launches per queued_ms chain: ~50 NTTs of 15-21 launches each
+# outgrew the card's launch queue (the host then waited)
+NTT_QUEUED_LAUNCHES = 256
+
+
+def ntt_times(shapes) -> list:
+    """The NTT at each (kind, polys, log_n, inverse) of ``shapes`` on random
+    BN254 Fr polys: the kernel bitwise against the torch stage loop
+    (``plain_ms``, one synchronised run), then ms per NTT on the card alone
+    (``queued_ms``) and per stage, beside its bytes bound (each stage reads
+    and writes every element once, 64 bytes, over HBM_BYTES_S)."""
+    import torch
+
+    from halo2_rsa_tpu_torch.bench import mont_layout
+    from halo2_rsa_tpu_torch.prover import ntt
+
+    out = []
+    for kind, polys, log_n, inverse in shapes:
+        x = mont_layout.random_elements(ntt.FR, polys << log_n, 47 + log_n, "cuda")
+        x = x.view(polys, 1 << log_n, 8)
+        got = ntt._ntt_graph(x, log_n, bool(inverse))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ntt._ntt_loop(x, log_n, bool(inverse))
+        torch.cuda.synchronize()
+        res = dict(kind=kind, polys=polys, log_n=log_n, inverse=inverse,
+                   plain_ms=(time.perf_counter() - t0) * 1e3, max_abs_err=_max_abs_err(got, want),
+                   digest=_digest((got,)))
+        del got, want
+        if res["max_abs_err"]:
+            raise AssertionError(f"the NTT at {polys} x 2^{log_n}, inverse {inverse}, differs "
+                                 f"from the torch loop")
+        res["ms"] = queued_ms(lambda v, n=log_n, i=bool(inverse): (ntt._ntt_graph(x, n, i), v)[1],
+                              x, max(1, NTT_QUEUED_LAUNCHES // log_n))
+        res["stage_ms"] = res["ms"] / log_n
+        res["bound_ms"] = (polys << log_n) * 64 * log_n / HBM_BYTES_S * 1e3
+        res["share"] = res["bound_ms"] / res["ms"]
+        out.append(res)
+    return out
+
+
+def phase_ntt(report, kernels):
+    """[6 NTT] The NTT at every (polys, log_n, direction) one flagship warm
+    prove calls it with, and at the same calls at k=18's sizes (log_n +
+    NTT_K18_SHIFT): each bitwise against the torch loop, its time per NTT
+    and per stage on the card alone beside its bytes bound, and the loop's
+    time; log_n launches a call."""
+    f = report["flagship"]
+    hist = {(p, n, inv): calls for p, n, inv, calls in f["ntt_calls_per_warm_prove"]}
+    want = sum(calls * n for (_, n, _), calls in hist.items())
+    if f["launches_per_warm_prove"]["NTT"] != want:
+        raise AssertionError(f"the NTT launched {f['launches_per_warm_prove']['NTT']} times per "
+                             f"warm prove, {want} stages expected")
+    shapes = [("path", *k) for k in sorted(hist)]
+    shapes += [("k18", p, n + NTT_K18_SHIFT, inv) for _, p, n, inv in shapes]
+    out = ntt_times(shapes)
+    for r in out:
+        r["calls_per_warm_prove"] = hist[r["polys"], r["log_n"] - NTT_K18_SHIFT * (r["kind"] == "k18"),
+                                         r["inverse"]]
+        line(f"[6 NTT] {r['kind']} {r['polys']} x 2^{r['log_n']} "
+             f"{'inverse' if r['inverse'] else 'forward'} ({r['calls_per_warm_prove']} a warm "
+             f"prove): bitwise equal | card {r['ms']:.4f} ms ({r['stage_ms']:.4f} a stage) vs "
+             f"bytes bound {r['bound_ms']:.4f} ms = {r['share'] * 100:.1f} % | torch loop "
+             f"{r['plain_ms']:.1f} ms")
+    card = {kind: sum(r["calls_per_warm_prove"] * r["ms"] for r in out if r["kind"] == kind)
+            for kind in ("path", "k18")}
+    report["ntt"] = dict(shapes=out, card_ms_per_warm_prove=card)
+    row = max((r for r in out if r["kind"] == "k18"), key=lambda r: r["polys"] << r["log_n"])
+    kernels["NTT"].update(
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by="bytes",
+        library_ms=None, max_abs_err=max(kernels["NTT"]["max_abs_err"], row["max_abs_err"]),
+        shape=f"{row['polys']} x 2^{row['log_n']}, inverse {row['inverse']} (k=18's largest; "
+              f"ms per NTT of {row['log_n']} launches)")
+    line(f"[6 NTT] {len(hist)} path shapes, {sum(hist.values())} calls and {want} launches per "
+         f"warm prove | card time per warm prove (sum of calls x queued ms): flagship "
+         f"{card['path']:.3f} ms, the same calls at k=18's sizes {card['k18']:.3f} ms")
 
 
 def phase_k2(report, kernels):
@@ -2270,8 +2417,10 @@ SHA_BITS, SHA_MSG_LEN = 1024, 64
 
 def _size(key: str, shape) -> int:
     """A recorded shape's elements: products (K1), elements x exponent bits,
-    rows x length, rows x C, points, rows x L, rows x buckets, or points x
-    doublings."""
+    rows x length, rows x C, points, rows x L, rows x buckets, points x
+    doublings, or polys x 2^log_n (NTT)."""
+    if key == "NTT":
+        return shape[0] << shape[1]
     return shape[0] * (shape[1] if len(shape) > 1 and key != "K1" else 1)
 
 
@@ -2313,6 +2462,7 @@ def warm_prove_shapes(report) -> dict:
     covered["K1"] = {tuple(c[:-1]) for c in flag["k1_calls_per_warm_prove"]}
     covered["K1-pow"] = {tuple(c[:-1]) for c in flag["k1_pow_calls_per_warm_prove"]}
     covered["K1-prefix"] = {tuple(c[:-1]) for c in flag["k1_prefix_calls_per_warm_prove"]}
+    covered["NTT"] = {tuple(c[:-1]) for c in flag["ntt_calls_per_warm_prove"]}
     return covered
 
 
@@ -2894,6 +3044,7 @@ def main() -> int:
     phase_k1(report, kernels)
     phase_k1_pow(report, kernels)
     phase_k1_prefix(report, kernels)
+    phase_ntt(report, kernels)
     phase_k2(report, kernels)
     phase_k3(report, kernels)
     phase_k4(report, kernels)

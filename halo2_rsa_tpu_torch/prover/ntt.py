@@ -8,29 +8,36 @@ applies the same data movement
     d_i = (x_i - x_{i+N/2}) * W^{(i >> t) << t}
     x'  = interleave(s, d)
 
-and the bit-reversed output is put back in natural order by one gather. The
-stage loop is a Python loop of torch ops; its Montgomery products go to K1.
-Stage twiddles are assembled from two sqrt(N)-sized tables and cached per
-(size, direction, device) up to ``_TW_FULL_MAX_LOG_N``.
+and the bit-reversed output is put back in natural order. On a CUDA tensor
+the transform is the hand-written kernel ``csrc/ntt.cu``: one launch per
+stage, the twiddle formed in the kernel from two sqrt(N)-sized tables, the
+last stage storing at the bit-reversed positions and scaling an inverse by
+1/N, so an NTT of 2^log_n is log_n launches (:data:`LAUNCHES`) and no K1
+call. On a CPU tensor it is :func:`_ntt_loop`, a Python loop of torch ops
+whose stage twiddles are assembled from the same tables and cached per
+(size, direction) up to ``_TW_FULL_MAX_LOG_N``; the kernel's outputs are
+the same canonical limbs, bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..fields import vecfield
-from ..fields.cuda_mont import LIMBS
+from ..fields.cuda_mont import LIMBS, check_kernel_args, check_launch, p_arg
 from ..fields.field import BN254_FR
 from ..fields.vecfield import add, mont_mul, sub
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 FR = vecfield.consts(BN254_FR)
 R_MOD = BN254_FR.p
 
 TWO_ADICITY = 28
+LAUNCHES = {"ntt": 0}  # stage launches of csrc/ntt.cu
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,9 +105,10 @@ _TW_FULL_MAX_LOG_N = 20
 
 
 def _twiddles_full(log_n: int, inverse: bool, device):
-    """(log_n, N/2, 8) stage twiddles, built once per (log_n, direction,
-    device) and cached; None above _TW_FULL_MAX_LOG_N."""
-    if log_n > _TW_FULL_MAX_LOG_N or log_n == 0:
+    """(log_n, N/2, 8) stage twiddles of :func:`_ntt_loop`, built once per
+    (log_n, direction) and cached; None above _TW_FULL_MAX_LOG_N, and None
+    on a CUDA device, whose kernel forms its twiddles itself."""
+    if log_n > _TW_FULL_MAX_LOG_N or log_n == 0 or torch.device(device).type != "cpu":
         return None
     key = (log_n, inverse, torch.device(device))
     hit = _TW_FULL_CACHE.get(key)
@@ -112,28 +120,82 @@ def _twiddles_full(log_n: int, inverse: bool, device):
     return hit
 
 
+def _ntt_loop(a: torch.Tensor, log_n: int, inverse: bool, tw_full=None) -> torch.Tensor:
+    """Batched Pease NTT over ``a`` (P, N, 8) in torch ops (``log_n`` >= 1);
+    ``tw_full`` optional precomputed stage twiddles (see
+    :func:`_twiddles_full`). The CPU path, and the kernel's plain version."""
+    n = 1 << log_n
+    p = a.shape[0]
+    half = n // 2
+    for t in range(log_n):
+        tw = tw_full[t] if tw_full is not None else _stage_twiddles(log_n, inverse, t, a.device)
+        top = a[:, :half]
+        bot = a[:, half:]
+        s = add(FR, top, bot)
+        d = mont_mul(FR, sub(FR, top, bot), tw[None])
+        a = torch.stack([s, d], dim=2).reshape(p, n, LIMBS)
+        del s, d
+    a = a[:, torch.from_numpy(_bitrev(log_n)).to(a.device)]
+    if inverse:
+        a = mont_mul(FR, a, torch.from_numpy(_n_inv_mont(log_n)).to(a.device))
+    return a
+
+
+_KERNEL_TABLES: dict = {}
+
+
+def _kernel_tables(log_n: int, inverse: bool, device) -> tuple:
+    """(h, hi, lo, N^-1) of the kernel: the two twiddle tables of
+    :func:`_twiddle_tables` on ``device`` and N^-1 (Montgomery) as a ctypes
+    uint32[8], uploaded once per (log_n, direction, device)."""
+    key = (log_n, inverse, device)
+    hit = _KERNEL_TABLES.get(key)
+    if hit is None:
+        h, lo, hi = _twiddle_tables(log_n, inverse)
+        n_inv = (ctypes.c_uint32 * LIMBS)(*_n_inv_mont(log_n).view(np.uint32).tolist())
+        hit = (h, torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device), n_inv)
+        _KERNEL_TABLES[key] = hit
+    return hit
+
+
+def _ntt_kernel(a: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+    """Batched Pease NTT over a CUDA tensor ``a`` (P, N, 8), ``log_n`` >= 1:
+    ``csrc/ntt.cu``, log_n launches on the current stream into a fresh
+    output (a scratch tensor of a's size for the stages in between)."""
+    a = a.contiguous()
+    check_kernel_args(a)
+    if a.data_ptr() % 16:
+        raise ValueError("the NTT kernel's tensor must be 16-byte aligned")
+    from ..utils.cuda_build import library
+
+    h, hi, lo, n_inv = _kernel_tables(log_n, inverse, a.device)
+    out = torch.empty_like(a)
+    scratch = torch.empty_like(a) if log_n > 1 else None
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = library().h2r_ntt(
+        a.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        a.shape[0], log_n, int(inverse), hi.data_ptr(), lo.data_ptr(), h, n_inv, p_arg(FR),
+        FR.n0inv32, stream,
+    )
+    check_launch(err, "h2r_ntt")
+    LAUNCHES["ntt"] += log_n
+    count(launches=log_n)
+    return out
+
+
 def _ntt_graph(a: torch.Tensor, log_n: int, inverse: bool, tw_full=None) -> torch.Tensor:
-    """Batched Pease NTT over ``a`` (P, N, 8); ``tw_full`` optional
-    precomputed stage twiddles (see :func:`_twiddles_full`)."""
+    """Batched Pease NTT over ``a`` (P, N, 8): the kernel on a CUDA tensor,
+    :func:`_ntt_loop` (with ``tw_full``, optional precomputed stage twiddles)
+    on a CPU tensor."""
     n = 1 << log_n
     p = a.shape[0]
     assert a.shape == (p, n, LIMBS)
-    if log_n == 0:
+    if log_n == 0 or p == 0:
         return a
-    half = n // 2
     with span("ntt", batch=p, log_n=log_n):
-        for t in range(log_n):
-            tw = tw_full[t] if tw_full is not None else _stage_twiddles(log_n, inverse, t, a.device)
-            top = a[:, :half]
-            bot = a[:, half:]
-            s = add(FR, top, bot)
-            d = mont_mul(FR, sub(FR, top, bot), tw[None])
-            a = torch.stack([s, d], dim=2).reshape(p, n, LIMBS)
-            del s, d
-        a = a[:, torch.from_numpy(_bitrev(log_n)).to(a.device)]
-        if inverse:
-            a = mont_mul(FR, a, torch.from_numpy(_n_inv_mont(log_n)).to(a.device))
-    return a
+        if a.device.type == "cpu":
+            return _ntt_loop(a, log_n, inverse, tw_full)
+        return _ntt_kernel(a, log_n, inverse)
 
 
 def ntt(a: torch.Tensor, log_n: int) -> torch.Tensor:

@@ -3,7 +3,8 @@ and P2 against their plain torch versions.
 
 K1 is also held with a broadcast operand read in place, and its own kernels
 K1-pow (the exponentiation) and K1-prefix (the prefix product) at lengths
-around K1-prefix's tile.
+around K1-prefix's tile. The NTT kernel (one launch per stage) is held
+against the torch stage loop from 2 to 2^21 elements.
 
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
 marker and skip without a card (the card gate ``chip_smoke.py`` runs the
@@ -27,8 +28,8 @@ import torch
 from halo2_rsa_tpu_torch.bench import mont_layout, vpu_ops
 from halo2_rsa_tpu_torch.fields import ALL_FIELDS, cuda_mont, vecfield
 from halo2_rsa_tpu_torch.fields.field import BN254_FQ
-from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec
-from halo2_rsa_tpu_torch.utils import cuda_build
+from halo2_rsa_tpu_torch.prover import cuda_g1, curve, g1_vec, ntt
+from halo2_rsa_tpu_torch.utils import cuda_build, profiling
 
 
 @pytest.fixture
@@ -144,6 +145,68 @@ def test_k1_prefix_wrapper_rejects_bad_arguments(cuda):
         with pytest.raises(ValueError):
             cuda_mont.mont_prefix(fc, bad)
     assert cuda_mont.LAUNCHES["mont_prefix"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("polys", [1, 4, 11])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 10, 15, 17, 18, 21])
+def test_ntt_kernel_matches_loop(cuda, log_n, polys, inverse):
+    """The NTT kernel (csrc/ntt.cu) bitwise against the torch stage loop on
+    the card, from 2 to 2^21 elements (the extended domain at k=18); one
+    NTT of 2^log_n is log_n launches and no K1 launch, counted on the
+    wrapper and on the ``ntt`` span."""
+    fc = ntt.FR
+    a = mont_layout.random_elements(fc, polys << log_n, 7 * log_n + polys, cuda)
+    edge = vecfield.from_ints(fc, [0, 1, fc.field.p - 1][: 1 << log_n], device=cuda)
+    a[: edge.shape[0]] = edge
+    a = a.view(polys, 1 << log_n, 8)
+    k1 = dict(cuda_mont.LAUNCHES)
+    before = ntt.LAUNCHES["ntt"]
+    with profiling.tracing() as trace:
+        got = ntt._ntt_graph(a, log_n, inverse)
+    assert ntt.LAUNCHES["ntt"] == before + log_n
+    assert cuda_mont.LAUNCHES == k1
+    assert trace.totals()["ntt"]["launches"] == log_n
+    assert torch.equal(got, ntt._ntt_loop(a, log_n, inverse))
+
+
+@pytest.mark.cuda
+def test_ntt_public_functions_on_the_card(cuda):
+    """ntt/intt and their batches on the card: the round trip is the
+    identity, and each equals the CPU's result."""
+    fc = ntt.FR
+    log_n = 12
+    x = mont_layout.random_elements(fc, 3 << log_n, 77, cuda).view(3, 1 << log_n, 8)
+    fwd = ntt.ntt_batch(x, log_n)
+    assert torch.equal(ntt.intt_batch(fwd, log_n), x)
+    assert torch.equal(fwd.cpu(), ntt.ntt_batch(x.cpu(), log_n))
+    assert torch.equal(ntt.ntt(x[1], log_n), fwd[1])
+    assert torch.equal(ntt.intt(fwd[2], log_n), x[2])
+
+
+def test_ntt_dispatch_by_device():
+    """A CPU tensor runs the torch loop (no launch; the kernel's wrapper
+    refuses it); the full stage-twiddle tables exist for the CPU only."""
+    a = mont_layout.random_elements(ntt.FR, 16, 3, "cpu").view(2, 8, 8)
+    before = ntt.LAUNCHES["ntt"]
+    assert torch.equal(ntt._ntt_graph(a, 3, True), ntt._ntt_loop(a, 3, True))
+    with pytest.raises(ValueError):
+        ntt._ntt_kernel(a, 3, True)
+    assert ntt.LAUNCHES["ntt"] == before
+    assert ntt._twiddles_full(10, False, "cpu") is not None
+    assert ntt._twiddles_full(10, False, "cuda") is None
+
+
+@pytest.mark.cuda
+def test_ntt_kernel_rejects_bad_arguments(cuda):
+    a = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
+    before = ntt.LAUNCHES["ntt"]
+    with pytest.raises(TypeError):
+        ntt._ntt_kernel(a.long(), 3, False)
+    with pytest.raises(ValueError):
+        ntt._ntt_kernel(a[..., :4].contiguous(), 3, False)
+    assert ntt.LAUNCHES["ntt"] == before
 
 
 @pytest.mark.cuda

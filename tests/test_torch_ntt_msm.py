@@ -65,6 +65,64 @@ def test_ntt_batch_and_stage_twiddles_match_jax():
         assert torch.equal(tw, tntt._ntt_graph(at, log_n, inverse, tntt._twiddles_full(log_n, inverse, "cpu")))
 
 
+def _brev64(x: int) -> int:
+    return int(f"{x:064b}"[::-1], 2)
+
+
+def _kernel_model(a, log_n, inverse):
+    """csrc/ntt.cu's index arithmetic in plain torch: (stage outputs, the
+    stage twiddles it forms, the last stage's output positions)."""
+    fr = tntt.FR
+    h, lo, hi = tntt._twiddle_tables(log_n, inverse)
+    lo, hi = torch.from_numpy(lo), torch.from_numpy(hi)
+    half = 1 << (log_n - 1)
+    i = torch.arange(half)
+    src, twiddles = a, []
+    for t in range(log_n):
+        x, y = src[:, i], src[:, i + half]
+        s, d = tvf.add(fr, x, y), tvf.sub(fr, x, y)
+        dst = torch.empty_like(src)
+        if t + 1 < log_n:
+            e = (i >> t) << t
+            w = hi[e >> h]
+            if t < h:
+                w = tvf.mont_mul(fr, w, lo[e & ((1 << h) - 1)])
+            twiddles.append(w)
+            d = tvf.mont_mul(fr, d, w[None])
+            dst[:, 2 * i], dst[:, 2 * i + 1] = s, d
+        else:
+            if inverse:
+                n_inv = torch.from_numpy(tntt._n_inv_mont(log_n))
+                s, d = tvf.mont_mul(fr, s, n_inv), tvf.mont_mul(fr, d, n_inv)
+            r = torch.tensor([_brev64(v) >> (65 - log_n) if log_n > 1 else 0 for v in range(half)])
+            dst[:, r], dst[:, r + half] = s, d
+        src = dst
+    return src, twiddles, r
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_ntt_kernel_model_matches_loop(log_n, inverse):
+    """The CUDA kernel's index arithmetic, emulated on the CPU: its in-kernel
+    twiddles hi[e >> h] * lo[e & mask] (hi alone from stage h on) equal
+    ``_stage_twiddles``; its last stage (twiddle 1) stores at ``_bitrev``'s
+    positions and scales an inverse by N^-1; the whole equals the torch loop."""
+    vals = _scalars(3 << log_n, 1000 + log_n)
+    a = tvf.from_ints(tntt.FR, vals, device="cpu").reshape(3, 1 << log_n, 8)
+    got, twiddles, r = _kernel_model(a, log_n, inverse)
+    for t, w in enumerate(twiddles):
+        assert torch.equal(w, tntt._stage_twiddles(log_n, inverse, t, "cpu")), t
+    one = tvf.from_ints(tntt.FR, [1], device="cpu")
+    assert torch.equal(tntt._stage_twiddles(log_n, inverse, log_n - 1, "cpu"),
+                       one.expand(1 << (log_n - 1), 8))
+    rev = torch.from_numpy(tntt._bitrev(log_n))
+    assert torch.equal(rev[r], 2 * torch.arange(1 << (log_n - 1)))
+    assert torch.equal(rev[r + (1 << (log_n - 1))], 2 * torch.arange(1 << (log_n - 1)) + 1)
+    assert torch.equal(got, tntt._ntt_loop(a, log_n, inverse))
+    assert torch.equal(got, tntt._ntt_graph(a, log_n, inverse,
+                                            tntt._twiddles_full(log_n, inverse, "cpu")))
+
+
 @pytest.mark.parametrize("wb", [4, 8])
 def test_digits_match_jax(wb):
     vals = _scalars(37, wb)
