@@ -75,7 +75,13 @@ the script exits non-zero without its final line):
     shape the flagship's warm prove does not launch (the fixed-base set-up,
     keygen, the checker, the MSM's point-axis segments, k=17's NTT stages)
     and each kernel's largest held bitwise against its plain version, on the
-    inputs of a second run of the path (``sha.held``);
+    inputs of a second run of the path (``sha.held``); then the zk-email
+    cell's circuit (RSA-2048, SHA-256 in its dynamic-length mode up to
+    1,024 B, k=20, 650,151 gates) the same way, its key made from the
+    witness-free circuit (``zkemail.calls``, ``zkemail.held``), and one
+    warm prove's NTT and K1 shapes, and its K2 and row-scan
+    shapes the flagship's does not launch, timed on the card alone
+    (``zkemail.ntt``, ``zkemail.k1``, ``zkemail.k2``, ``zkemail.k3_scan``);
 12. batched witness replay (``witness.WitnessProgram``): BASELINE config #1
     at its batch of 256 distinct instances, and 16 flagship instances under
     one key tiled to 64, replayed on the card with the launch counts set to
@@ -2430,9 +2436,12 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict, path: str) -> list:
     holds), and each kernel's largest, held bitwise against its plain
     version on the path's own inputs: those of the first launch at that
     shape in a second run of the path (``keep``). Returns one row per shape
-    held."""
+    held. Each copy is dropped once held."""
     import torch
 
+    # give back the blocks the second run freed, so that the plain versions'
+    # temporaries fit beside the copies (a k=20 path's copies take ~23 GB)
+    torch.cuda.empty_cache()
     out = []
     for key, shapes in hist.items():
         largest = max(shapes, key=lambda s_: _size(key, s_))
@@ -2440,11 +2449,12 @@ def _hold_path_calls(keep: dict, hist: dict, covered: dict, path: str) -> list:
             if (key, shape) not in keep:
                 raise AssertionError(f"{key} at {shape} was launched by the first run of the "
                                      f"path only")
-            plain, args, kw, got = keep[key, shape]
+            plain, args, kw, got = keep.pop((key, shape))
             t0 = time.perf_counter()
             want = plain(*args, **kw)
             torch.cuda.synchronize()
             err = _max_abs_err(got, want)
+            del args, got, want
             if err:
                 raise AssertionError(f"{key} at {shape} on the {path} path differs from its "
                                      f"plain version")
@@ -2477,36 +2487,25 @@ def sha_circuit() -> tuple:
     n, sig = sign_fixture(SHA_BITS, msg, rng=random.Random(7))
     circ = Pkcs1v15Circuit.build(SHA_BITS, n, sig, msg=msg)
     compiled = circ.compile()
-    k = max(compiled.num_gates + len(compiled.instance_idx),
-            compiled.num_witness // 5 + 1).bit_length()
-    return circ, compiled, k
+    return circ, compiled, _k_of(compiled)
 
 
-def phase_sha(report, kernels):
-    """[11 sha] RSA-1024 + SHA-256 of a 64 B message in the circuit (k=17;
-    halo2-rsa ``benches/bench.rs:349-367``), as ``scripts/time_torch_flagship.py
-    1024 --sha 64`` builds it: build, check on the card, set-up, keygen, one
-    prove, verify, a wrong public input rejected, proof 2,272 B. Its MSMs
-    are the first of this script with more points than ``msm._SEG`` (the
-    point-axis segments). Every kernel of the flagship's path must launch on
-    this path too (counts set to 0 before it, read after), and the shape of
-    each launch is recorded (``_calls_of``). Then each shape that the
-    flagship's warm prove does not launch, and each kernel's largest, is
-    held bitwise against its plain version, on the inputs of a second run of
-    the path (``_hold_path_calls``)."""
+def _k_of(compiled) -> int:
+    """The rows' log2 a compiled circuit needs: its gates and instance rows,
+    and its cells over 5 columns."""
+    return max(compiled.num_gates + len(compiled.instance_idx),
+               compiled.num_witness // 5 + 1).bit_length()
+
+
+def _card_path(out: dict, circ, compiled, k: int, label: str, proof_len: int | None = None):
+    """A circuit's path on the card as a call ``path(timed=False)``: check,
+    SRS set-up (tau 777), keygen from ``compiled``, one prove, verify, a
+    wrong public input rejected, the proof's length if ``proof_len``; with
+    ``timed``, each step's seconds in ``out``."""
     import torch
 
     from halo2_rsa_tpu_torch.prover import kzg, plonk
 
-    out = {}
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    circ, compiled, k = sha_circuit()
-    out["build_compile_s"] = time.perf_counter() - t0
-    out.update(k=k, gates=int(compiled.num_gates))
-    if k != 17:
-        raise AssertionError(f"RSA-1024 SHA-64 picked k={k}, expected 17")
     bad = list(circ.public_inputs)
     bad[0] += 1
 
@@ -2522,33 +2521,71 @@ def phase_sha(report, kernels):
     def path(timed=False):
         check = step("check_s", circ.check, timed)
         if not check["ok"]:
-            raise AssertionError(f"RSA-1024 SHA-64 check on the card: {check}")
+            raise AssertionError(f"{label} check on the card: {check}")
         srs = step("setup_s", lambda: kzg.setup((1 << k) + plonk.BLIND, tau=777), timed)
         pk, vk = step("keygen_s", lambda: plonk.keygen(compiled, srs, k=k), timed)
         proof = step("prove_s", lambda: plonk.prove(pk, circ.builder.values, circ.public_inputs),
                      timed)
         if not step("verify_s", lambda: plonk.verify(vk, proof, circ.public_inputs), timed):
-            raise AssertionError("the RSA-1024 SHA-64 proof does not verify")
+            raise AssertionError(f"the {label} proof does not verify")
         if plonk.verify(vk, proof, bad):
-            raise AssertionError("RSA-1024 SHA-64: verify accepted a wrong public input")
-        if len(proof) != 2272:
-            raise AssertionError(f"RSA-1024 SHA-64 proof is {len(proof)} B, expected 2272")
+            raise AssertionError(f"{label}: verify accepted a wrong public input")
+        if proof_len is not None and len(proof) != proof_len:
+            raise AssertionError(f"{label} proof is {len(proof)} B, expected {proof_len}")
+        out["proof_bytes"] = len(proof)
 
+    return path
+
+
+def phase_sha(report, kernels):
+    """[11 sha] RSA-1024 + SHA-256 of a 64 B message in the circuit (k=17;
+    halo2-rsa ``benches/bench.rs:349-367``), as ``scripts/time_torch_flagship.py
+    1024 --sha 64`` builds it, proof 2,272 B. Its MSMs are the first of this
+    script with more points than ``msm._SEG`` (the point-axis segments).
+    ``_path_held``."""
+    out = {}
+    t0 = time.perf_counter()
+    circ, compiled, k = sha_circuit()
+    out["build_compile_s"] = time.perf_counter() - t0
+    out.update(k=k, gates=int(compiled.num_gates))
+    if k != 17:
+        raise AssertionError(f"RSA-1024 SHA-64 picked k={k}, expected 17")
+    report["sha"] = out
+    _path_held(report, kernels, "[11 sha]", "RSA-1024 SHA-64", "RSA-1024 SHA-256 of 64 B", out,
+               circ, compiled, k, 2272)
+
+
+def _path_held(report, kernels, tag: str, label: str, what: str, out: dict, circ, compiled,
+               k: int, proof_len: int | None = None) -> None:
+    """A circuit's path on the card (``_card_path``, keys from ``compiled``):
+    check, set-up, keygen, one prove, verify, a wrong public input rejected,
+    one line of its times (the build's from ``out``). Every kernel of the flagship's path must launch on it too
+    (counts set to 0 before it, read after: ``out["launches"]``), and the
+    shape of each launch is recorded (``_calls_of``: ``out["calls"]``).
+    Then each shape that the flagship's warm prove does not launch, and each
+    kernel's largest, is held bitwise against its plain version, on the
+    inputs of a second run of the path (``_hold_path_calls``:
+    ``out["held"]``)."""
+    import torch
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    path = _card_path(out, circ, compiled, k, label, proof_len)
     # the path's shapes are recorded as it runs (a counter per launch)
     calls = _calls_of(lambda: path(timed=True))
     out["launches"] = launch_counts()
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     out["calls"] = calls
-    report["sha"] = out
     for key, v in out["launches"].items():
         if v == 0:
-            raise AssertionError(f"{key} was never launched on the RSA-1024 SHA-64 path")
-    line(f"[11 sha] RSA-1024 SHA-256 of 64 B: {out['gates']} gates, k={k}, build+compile "
+            raise AssertionError(f"{key} was never launched on the {label} path")
+    line(f"{tag} {what}: {out['gates']} gates, k={k}, build+compile "
          f"{out['build_compile_s']:.2f} s, check {out['check_s']:.3f} s ok, setup "
          f"{out['setup_s']:.2f} s, keygen {out['keygen_s']:.2f} s, prove {out['prove_s']:.3f} s, "
-         f"verify {out['verify_s']:.3f} s ok, wrong public input rejected, proof 2272 B, peak "
-         f"{out['peak_mem_bytes'] / 2**30:.2f} GiB | launches " + ", ".join(
-             f"{k_}={v}" for k_, v in out["launches"].items()) + f" | {report['device']['smi']}")
+         f"verify {out['verify_s']:.3f} s ok, wrong public input rejected, proof "
+         f"{out['proof_bytes']} B, peak {out['peak_mem_bytes'] / 2**30:.2f} GiB | launches "
+         + ", ".join(f"{k_}={v}" for k_, v in out["launches"].items())
+         + f" | {report['device']['smi']}")
 
     # the path again, each shape's first launch copied; its launches are not
     # the path's counts (they were read above)
@@ -2556,7 +2593,7 @@ def phase_sha(report, kernels):
     t0 = time.perf_counter()
     _calls_of(path, keep)
     hist = {key: {tuple(c[:-1]): c[-1] for c in v} for key, v in calls.items()}
-    out["held"] = _hold_path_calls(keep, hist, warm_prove_shapes(report), "RSA-1024 SHA-64")
+    out["held"] = _hold_path_calls(keep, hist, warm_prove_shapes(report), label)
     del keep
     out["held_s"] = time.perf_counter() - t0
     for key in hist:
@@ -2564,12 +2601,133 @@ def phase_sha(report, kernels):
         kernels[key]["max_abs_err"] = max([kernels[key]["max_abs_err"]]
                                           + [r["max_abs_err"] for r in rows])
         big = max(hist[key], key=lambda s_: _size(key, s_))
-        line(f"[11 sha] {key}: {len(hist[key])} shapes, {sum(hist[key].values())} launches; "
+        line(f"{tag} {key}: {len(hist[key])} shapes, {sum(hist[key].values())} launches; "
              f"{sum(r['new'] for r in rows)} shapes not launched by the flagship's warm prove; "
              f"{len(rows)} held bitwise against the plain version on this path's own inputs "
              f"(each of those and the largest, {list(big)} x {hist[key][big]} launches)")
-    line(f"[11 sha] the path again with first launches copied, and {len(out['held'])} shapes "
+    line(f"{tag} the path again with first launches copied, and {len(out['held'])} shapes "
          f"held: {out['held_s']:.1f} s")
+
+
+# the zk-email cell's circuit (benchmark/configs/zkemail_hdr1024.json): RSA-2048,
+# SHA-256 in its dynamic-length mode up to 1,024 B, here over a 700 B header
+ZKEMAIL_BITS, ZKEMAIL_MAX_LEN, ZKEMAIL_LEN = 2048, 1024, 700
+
+
+def zkemail_circuit() -> tuple:
+    """The zk-email cell's circuit over a ZKEMAIL_LEN B message, message and
+    key from random.Random(7), built and compiled, and the witness-free
+    circuit its key is made from (``without_witness(max_len=)``): (circuit,
+    compiled, the key's compiled circuit, k)."""
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit, sign_fixture
+
+    rng = random.Random(7)
+    msg = bytes(rng.randrange(256) for _ in range(ZKEMAIL_LEN))
+    n, sig = sign_fixture(ZKEMAIL_BITS, msg, rng=random.Random(7))
+    circ = Pkcs1v15Circuit.build(ZKEMAIL_BITS, n, sig, msg=msg, max_len=ZKEMAIL_MAX_LEN)
+    compiled = circ.compile()
+    shape = Pkcs1v15Circuit.without_witness(ZKEMAIL_BITS, max_len=ZKEMAIL_MAX_LEN).compile()
+    return circ, compiled, shape, _k_of(compiled)
+
+
+def phase_zkemail(report, kernels):
+    """[11 zkemail] The zk-email cell's circuit (``zkemail_circuit``; k=20,
+    round 3 over 2^23 rows, MSMs over 2^20 points), its key made from the
+    witness-free circuit (one fingerprint with the instance's):
+    ``_path_held``. Then one warm prove's shapes and launches
+    (``zkemail.warm_calls``), timed on the card alone: the NTT at each
+    (``ntt_times``, beside its bytes bound), K1 at each (``k1_times``,
+    beside ``shape_bound``), and K2 and the row scans at each that the
+    flagship's warm prove does not launch (phase 6 times those it does)."""
+    import torch
+
+    from halo2_rsa_tpu_torch.fields import vecfield
+    from halo2_rsa_tpu_torch.fields.field import BN254_FR
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec, kzg, plonk
+    from halo2_rsa_tpu_torch.utils.serialization import circuit_fingerprint
+
+    tag = "[11 zkemail]"
+    out = {}
+    t0 = time.perf_counter()
+    circ, compiled, shape, k = zkemail_circuit()
+    out["build_compile_s"] = time.perf_counter() - t0
+    out.update(k=k, gates=int(compiled.num_gates), cells=int(compiled.num_witness))
+    if k != 20:
+        raise AssertionError(f"the zk-email circuit picked k={k}, expected 20")
+    if circuit_fingerprint(shape) != circuit_fingerprint(compiled):
+        raise AssertionError("the zk-email instance's trace differs from the witness-free one")
+    del compiled
+    report["zkemail"] = out
+    _path_held(report, kernels, tag, "zk-email k=20",
+               f"RSA-2048, SHA-256 of {ZKEMAIL_LEN} B in its dynamic mode up to "
+               f"{ZKEMAIL_MAX_LEN} B, {out['cells']} cells, keys from the witness-free circuit",
+               out, circ, shape, k)
+
+    pk, _ = plonk.keygen(shape, kzg.setup((1 << k) + plonk.BLIND, tau=777), k=k)
+    plonk.prove(pk, circ.builder.values, circ.public_inputs)
+    reset_launch_counts()
+    warm = _calls_of(lambda: plonk.prove(pk, circ.builder.values, circ.public_inputs))
+    del pk
+    out["warm_launches"] = launch_counts()
+    out["warm_calls"] = warm
+    line(f"{tag} one warm prove: launches " + ", ".join(
+        f"{k_}={v}" for k_, v in out["warm_launches"].items()))
+
+    whist = {key: {tuple(c[:-1]): c[-1] for c in v} for key, v in warm.items()}
+    rows = ntt_times([("k20", *s_) for s_ in sorted(whist["NTT"])])
+    for r in rows:
+        r["calls_per_warm_prove"] = whist["NTT"][r["polys"], r["log_n"], r["inverse"]]
+        line(f"{tag} NTT {r['polys']} x 2^{r['log_n']} "
+             f"{'inverse' if r['inverse'] else 'forward'} ({r['calls_per_warm_prove']} a warm "
+             f"prove): bitwise equal | card {r['ms']:.4f} ms ({r['stage_ms']:.4f} a stage) vs "
+             f"bytes bound {r['bound_ms']:.4f} ms = {r['share'] * 100:.1f} % | torch loop "
+             f"{r['plain_ms']:.1f} ms")
+    out["ntt"] = rows
+    fc = vecfield.consts(BN254_FR)
+    rows = k1_times(lambda x, y: vecfield.mont_mul(fc, x, y),
+                    [("k20", *s_) for s_ in sorted(whist["K1"])])
+    for r in rows:
+        r["launches_per_warm_prove"] = whist["K1"][r["n"], r["nb"], r["mode"]]
+        r.update(shape_bound(report, *_k1_part(report["sass"], r)))
+        line(f"{tag} K1 {r['n']} x {r['nb']} rows ({K1_MODES[r['mode']]}; "
+             f"{r['launches_per_warm_prove']} a warm prove): card {r['ms']:.4f} ms vs bound "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['bound_ms'] / r['ms'] * 100:.1f} %")
+    out["k1"] = rows
+    card = {"NTT": sum(r["calls_per_warm_prove"] * r["ms"] for r in out["ntt"]),
+            "K1": sum(r["launches_per_warm_prove"] * r["ms"] for r in out["k1"])}
+    out["card_ms_per_warm_prove"] = card
+    line(f"{tag} card time per warm prove (sum of launches x queued ms): NTT "
+         f"{card['NTT']:.3f} ms, K1 {card['K1']:.3f} ms")
+
+    fq = g1_vec.FQ
+    covered = warm_prove_shapes(report)
+    new = {key: sorted(s_ for s_ in whist[key] if s_ not in covered[key])
+           for key in ("K2", "K3-scan")}
+    out["k2"], out["k3_scan"] = [], []
+    if new["K2"]:
+        start, pts = k2_inputs(max(m for m, _ in new["K2"]), max(c for _, c in new["K2"]))
+        out["k2"] = k2_times(lambda s_, r_: lambda: cuda_g1.point_scan_mixed(fq, s_, r_),
+                             [("k20", *x) for x in new["K2"]], start, pts)
+    if new["K3-scan"]:
+        scan = {0: cuda_g1.point_scan, 1: cuda_g1.point_scan_sum}
+        pts = k3_scan_inputs(max(x[0] for x in new["K3-scan"]),
+                             max(x[1] for x in new["K3-scan"]))
+        out["k3_scan"] = k3_scan_times(lambda s_, t: lambda: scan[t](fq, s_),
+                                       [("k20", *x) for x in new["K3-scan"]], pts)
+    line(f"{tag} warm-prove shapes the flagship's does not launch, timed: K2 "
+         + (", ".join(f"m={r['m']} C={r['c']} {r['ms']:.4f} ms ({whist['K2'][r['m'], r['c']]} "
+                      f"a warm prove)" for r in out["k2"]) or "none")
+         + " | K3-scan "
+         + (", ".join(f"rows={r['rows']} L={r['len']} tree={r['tree']} {r['ms']:.4f} ms "
+                      f"({whist['K3-scan'][r['rows'], r['len'], r['tree']]} a warm prove)"
+                      for r in out["k3_scan"]) or "none")
+         + f" | {report['device']['smi']}")
+    # phase 13's rank processes share the card: give back the blocks this
+    # phase's copies left in the allocator's cache
+    out["reserved_peak_bytes"] = torch.cuda.max_memory_reserved()
+    torch.cuda.empty_cache()
+    line(f"{tag} the allocator reserved at most {out['reserved_peak_bytes'] / 2**30:.2f} GiB; "
+         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB kept after emptying its cache")
 
 
 REPLAY_C1_BATCH = 256  # BASELINE config #1's batch: 256 distinct mul_mod-2048 instances
@@ -3053,6 +3211,7 @@ def main() -> int:
     phase_bounds(report, kernels)
     config1 = phase_checker(report, kernels, flagship)
     phase_sha(report, kernels)
+    phase_zkemail(report, kernels)
     phase_replay(report, kernels, flagship)
     phase_multirank(report, flagship, config1)
     report["kernels"] = kernels

@@ -47,10 +47,14 @@ class Pkcs1v15Circuit:
         msg: bytes | None = None,
         hashed_msg: int | None = None,
         expose_public: bool = True,
+        max_len: int | None = None,
     ) -> "Pkcs1v15Circuit":
         """With ``msg``: full SHA-256 + verify. With ``hashed_msg``: verify a
-        pre-hashed digest (the SHA-disabled flagship shape). Span ``synth``
-        (count ``cells``)."""
+        pre-hashed digest (the SHA-disabled flagship shape). With ``msg`` and
+        ``max_len``, SHA-256 runs in its dynamic-length mode: one trace, so
+        one key, for every message of at most ``max_len`` bytes; the length
+        stays private and the public inputs are those of the fixed mode.
+        Span ``synth`` (count ``cells``)."""
         with span("synth"):
             b = Builder(BN254_FR)
             rsa_chip = RSAChip(b, bits, EXP_LIMB_BITS)
@@ -58,8 +62,10 @@ class Pkcs1v15Circuit:
             sig_a = rsa_chip.assign_signature(RSASignature(sig))
             pubs = []
             if msg is not None:
-                verifier = RSASignatureVerifier(rsa_chip, Sha256Chip(b))
-                is_valid, hashed_bytes = verifier.verify_pkcs1v15_signature(pk, msg, sig_a)
+                verifier = RSASignatureVerifier(rsa_chip, _TracedSha256Chip(b))
+                is_valid, hashed_bytes = verifier.verify_pkcs1v15_signature(
+                    pk, msg, sig_a, max_len=max_len
+                )
                 rsa_chip.main_gate.assert_one(is_valid)
                 if expose_public:
                     for limb in pk.n.limbs:
@@ -69,7 +75,7 @@ class Pkcs1v15Circuit:
                     digest = hashlib.sha256(msg).digest()
                     pubs = _n_limbs(n, bits) + list(digest)
             else:
-                assert hashed_msg is not None
+                assert hashed_msg is not None and max_len is None
                 hashed = rsa_chip.bigint_chip.assign_integer(hashed_msg, num_limbs=4)
                 is_valid = rsa_chip.verify_pkcs1v15_signature(pk, hashed, sig_a)
                 rsa_chip.main_gate.assert_one(is_valid)
@@ -84,14 +90,20 @@ class Pkcs1v15Circuit:
 
     @classmethod
     def without_witness(
-        cls, bits: int, msg_len: int | None = None, expose_public: bool = True
+        cls, bits: int, msg_len: int | None = None, expose_public: bool = True,
+        max_len: int | None = None,
     ) -> "Pkcs1v15Circuit":
         """Witness-free instance for keygen: the same trace shape as any real
-        instance of the same (bits, msg_len) config, from dummy values."""
+        instance of the same (bits, msg_len) config, from dummy values. With
+        ``max_len`` instead of ``msg_len``, the trace of every message of at
+        most ``max_len`` bytes."""
+        if msg_len is not None and max_len is not None:
+            raise ValueError("give msg_len (fixed-length SHA-256) or max_len (dynamic), not both")
         dummy_pk = RSAPublicKey.without_witness(bits)
-        if msg_len is not None:
+        if msg_len is not None or max_len is not None:
             return cls.build(
-                bits, dummy_pk.n, 0, msg=b"\x00" * msg_len, expose_public=expose_public
+                bits, dummy_pk.n, 0, msg=b"\x00" * (msg_len or 0),
+                expose_public=expose_public, max_len=max_len,
             )
         return cls.build(bits, dummy_pk.n, 0, hashed_msg=0, expose_public=expose_public)
 
@@ -101,6 +113,17 @@ class Pkcs1v15Circuit:
 
     def compile(self):
         return checker.compile_circuit(self.builder)
+
+
+class _TracedSha256Chip(Sha256Chip):
+    """The SHA-256 chip with its dynamic mode under the span
+    ``sha256.dynamic`` (counts ``blocks``, the blocks compressed, and
+    ``bytes``, the message's length). The chip's own module is carried
+    unchanged from the JAX package, so the span is added here."""
+
+    def digest_dynamic(self, msg: bytes, max_len: int):
+        with span("sha256.dynamic", blocks=self.num_blocks(max_len), bytes=len(msg)):
+            return super().digest_dynamic(msg, max_len)
 
 
 def _n_limbs(x: int, bits: int) -> list:

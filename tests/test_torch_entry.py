@@ -30,3 +30,9 @@ def test_example_check_passes_on_the_cpu(capsys):
     rsa_example.main([], device="cpu")
     out = capsys.readouterr().out
     assert "'ok': True" in out and out.rstrip().endswith("OK")
+
+
+def test_example_dynamic_check_passes_on_the_cpu(capsys):
+    rsa_example.main(["--max-len", "128"], device="cpu")
+    out = capsys.readouterr().out
+    assert "'ok': True" in out and out.rstrip().endswith("OK")

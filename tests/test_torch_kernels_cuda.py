@@ -14,7 +14,9 @@ model of the lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's
 steps on it run everywhere. Three modules whose products run through K1 are
 checked on the card too: the constraint checker against itself on the CPU,
 the key artifacts saved and loaded back on the card, and batched witness
-replay against itself on the CPU and a golden proof from its witness.
+replay against itself on the CPU and a golden proof from its witness. A
+dynamic-length SHA-256 circuit is proved there for two message lengths under
+one key.
 """
 
 import math
@@ -1041,6 +1043,43 @@ def test_keys_round_trip_on_the_card(cuda, tmp_path):
     proof = plonk.prove(pk2, b.values, pubs, rng=random.Random(meta["seed"]))
     assert proof == want
     assert plonk.verify(ser.load_vk(str(tmp_path / "vk.json")), proof, pubs)
+
+
+@pytest.mark.cuda
+def test_dynamic_sha_proofs_of_two_lengths_under_one_key(cuda):
+    """SHA-256 in its dynamic-length mode (``max_len`` 4, one block, k = 16):
+    the circuits of two lengths have one fingerprint, so one key, made from
+    the first; each proof verifies against its own digest bytes and not
+    against a wrong one."""
+    import hashlib
+
+    from halo2_rsa_tpu_torch.circuit import Builder, checker
+    from halo2_rsa_tpu_torch.fields import BN254_FR
+    from halo2_rsa_tpu_torch.prover import kzg, plonk
+    from halo2_rsa_tpu_torch.sha256 import Sha256Chip
+    from halo2_rsa_tpu_torch.utils.serialization import circuit_fingerprint
+
+    def circuit(msg):
+        b = Builder(BN254_FR)
+        _, digest_bytes, _, _ = Sha256Chip(b).digest_dynamic(msg, 4)
+        for cell in digest_bytes[:4]:
+            b.expose_public(cell)
+        return b
+
+    msgs = [b"ab", b"abcd"]
+    builders = [circuit(m) for m in msgs]
+    compiled = checker.compile_circuit(builders[0])
+    assert circuit_fingerprint(compiled) == circuit_fingerprint(
+        checker.compile_circuit(builders[1]))
+    k = max(compiled.num_gates + 4, compiled.num_witness // 5 + 1).bit_length()
+    assert k == 16
+    srs = kzg.setup((1 << k) + plonk.BLIND, tau=97531, device=cuda)
+    pk, vk = plonk.keygen(compiled, srs, k=k)
+    for seed, (msg, b) in enumerate(zip(msgs, builders)):
+        pub = list(hashlib.sha256(msg).digest()[:4])
+        proof = plonk.prove(pk, b.values, pub, rng=random.Random(seed))
+        assert plonk.verify(vk, proof, pub), f"length {len(msg)}"
+        assert not plonk.verify(vk, proof, [pub[0] ^ 1] + pub[1:])
 
 
 @pytest.mark.cuda

@@ -3,7 +3,9 @@
 Off (the default), ``span`` is the shared null context: no clock is read, no
 profiler range opened, nothing recorded. On, the k=5 golden proof records
 its rounds and the steps inside them with their parents, requests and
-counts, and a small batched replay records one span per group; proof bytes
+counts, a small batched replay records one span per group, and a build with
+SHA-256 in its dynamic-length mode records ``sha256.dynamic`` inside
+``synth`` with its blocks and the message's bytes; proof bytes
 and replayed witnesses are the same with tracing on and off. Under
 ``torch.profiler`` the spans appear as ``h2r/`` ranges, each inside its
 parent's.
@@ -210,3 +212,41 @@ def test_spans_are_profiler_ranges_nested_as_their_parents(replay):
         if s.parent is not None:
             p_start, p_neg_dur, _ = ranges[s.parent]
             assert p_start <= start and start - neg_dur <= p_start - p_neg_dur
+
+
+@pytest.fixture(scope="module")
+def dynamic_request():
+    """An RSA-1024 signature over a 70 B message, for a dynamic build of
+    ``max_len`` 100 (two SHA-256 blocks): (n, sig, msg)."""
+    from halo2_rsa_tpu_torch.pipelines import sign_fixture
+
+    msg = bytes(range(70))
+    return sign_fixture(1024, msg, rng=random.Random(5)) + (msg,)
+
+
+def test_dynamic_sha_span_nests_in_synth(dynamic_request):
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit
+
+    n, sig, msg = dynamic_request
+    with profiling.tracing() as trace:
+        Pkcs1v15Circuit.build(1024, n, sig, msg=msg, max_len=100)
+    spans = trace.spans
+    assert [s.name for s in spans] == ["synth", "sha256.dynamic"]
+    sha = spans[1]
+    assert spans[sha.parent].name == "synth"
+    assert sha.counts == {"blocks": (100 + 8) // 64 + 1, "bytes": 70}
+    assert spans[0].start_ns <= sha.start_ns <= sha.end_ns <= spans[0].end_ns
+
+
+def test_dynamic_build_records_nothing_with_tracing_off(dynamic_request):
+    from halo2_rsa_tpu_torch.pipelines import Pkcs1v15Circuit
+
+    n, sig, msg = dynamic_request
+    calls = []
+    real_clock = profiling.time.perf_counter_ns
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(profiling.time, "perf_counter_ns",
+                   lambda: calls.append("clock") or real_clock())
+        mp.setattr(profiling.torch.profiler, "record_function", lambda name: calls.append(name))
+        Pkcs1v15Circuit.build(1024, n, sig, msg=msg, max_len=100)
+    assert calls == [] and profiling._TRACE is None
