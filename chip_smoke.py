@@ -106,7 +106,8 @@ the script exits non-zero without its final line):
     the same SHA-256 on both ranks as phase 5's single-device proof with that
     rng, verified, a wrong public input rejected, per-rank launch counts and
     collectives (calls, bytes, staged bytes) over one warm prove, each
-    rank's K2 and chunk-total K3-scan work 1/2 of phase 5's; config #1 by
+    rank's K2 and chunk-total K3-scan work 1/2 of phase 5's (its blinding
+    tails' row scans phase 5's in full: each rank sums its own); config #1 by
     ``ShardedChecker`` on meshes (2, 1) and (1, 2) and ``WireShardedChecker``
     on (2, 1), 0 violations and the six corrupted instances' counts equal
     to phase 10's, checks/s; then one rank over NCCL proves the flagship
@@ -3066,10 +3067,17 @@ def _rank_lines(label: str, r: dict, smi: str) -> None:
          + f" | collectives per warm prove: {coll} | {smi}")
 
 
-def _scan_work(calls: list, tree=None) -> int:
+def _scan_work(calls: list, tree=None, tails=None) -> int:
     """Rows x length summed over a kernel's recorded calls (K2: rows x C;
-    K3-scan: rows x L of the scans with (1) or without (0) the tree)."""
-    return sum(c[0] * c[1] * c[-1] for c in calls if tree is None or c[2] == tree)
+    K3-scan: rows x L of the scans with (1) or without (0) the tree). With
+    ``tails`` True or False, only or all but the blinding tails' row scans
+    (L = BLIND x TAIL_WINDOWS + 1; an MSM's scans are powers of two or 255
+    long), which each rank runs in full."""
+    from halo2_rsa_tpu_torch.prover import plonk
+
+    row = plonk.BLIND * plonk.TAIL_WINDOWS + 1
+    return sum(c[0] * c[1] * c[-1] for c in calls if (tree is None or c[2] == tree)
+               and (tails is None or (c[1] == row) == tails))
 
 
 def phase_multirank(report, flagship, config1):
@@ -3136,11 +3144,17 @@ def phase_multirank(report, flagship, config1):
                 if zero:
                     raise AssertionError(f"{label} rank {rank}: {zero} never launched in a warm prove")
                 single = f5["g1_calls_per_warm_prove"]
-                for key, tree in (("K2", None), ("K3-scan", 0)):
-                    got, one = _scan_work(r["shapes"][key], tree), _scan_work(single[key], tree)
+                for key, tree, tails in (("K2", None, None), ("K3-scan", 0, False)):
+                    got = _scan_work(r["shapes"][key], tree, tails)
+                    one = _scan_work(single[key], tree, tails)
                     if got * world != one:
                         raise AssertionError(f"{label} rank {rank}: {key} work {got} is not 1/"
                                              f"{world} of the single device's {one}")
+                got = _scan_work(r["shapes"]["K3-scan"], 0, True)
+                one = _scan_work(single["K3-scan"], 0, True)
+                if got != one or not one:
+                    raise AssertionError(f"{label} rank {rank}: the blinding tails' row scans "
+                                         f"{got}, not the single device's {one}")
                 _rank_lines(f"{label} rank {rank}", r, smi)
         out["flagship"] = runs
     finally:
@@ -3156,7 +3170,8 @@ def phase_multirank(report, flagship, config1):
          + f" | phase 5 single device x{len(warm5)}: min {min(warm5):.3f} mean "
          f"{sum(warm5) / len(warm5):.3f} max {max(warm5):.3f} s | per rank K2 work "
          f"{_scan_work(g[0]['shapes']['K2'])} = 1/2 of {_scan_work(f5['g1_calls_per_warm_prove']['K2'])}"
-         f" row-points, K3 chunk-total scans {_scan_work(g[0]['shapes']['K3-scan'], 0)} = 1/2, "
+         f" row-points, K3 chunk-total scans {_scan_work(g[0]['shapes']['K3-scan'], 0, False)} = "
+         f"1/2, the tails' row scans {_scan_work(g[0]['shapes']['K3-scan'], 0, True)} in full, "
          f"bucket-reduce scans {_scan_work(g[0]['shapes']['K3-scan'], 1)} (single device "
          f"{_scan_work(f5['g1_calls_per_warm_prove']['K3-scan'], 1)}) | {smi}")
 

@@ -59,8 +59,9 @@ def _opt(arr16, device):
 
 
 def proving_key(ref_pk, device="cuda") -> plonk.ProvingKey:
-    """Reference ``ProvingKey`` -> port, field by field (plonk.py:91-120)."""
-    return plonk.ProvingKey(
+    """Reference ``ProvingKey`` -> port, field by field (plonk.py:91-120),
+    with the port's tail comb built on ``device``."""
+    pk = plonk.ProvingKey(
         vk=verifying_key(ref_pk.vk),
         srs=srs(ref_pk.srs, device),
         wire_source=np.asarray(ref_pk.wire_source, dtype=np.int32),
@@ -80,3 +81,5 @@ def proving_key(ref_pk, device="cuda") -> plonk.ProvingKey:
         van_inv=limbs(ref_pk.van_inv, device),
         g1_tail=list(ref_pk.g1_tail),
     )
+    plonk.tail_comb(pk)
+    return pk

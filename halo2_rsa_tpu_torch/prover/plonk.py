@@ -7,8 +7,9 @@ the 8n extended coset, and GWC openings at x and ωx. With the same
 ``rng`` the proof bytes equal the JAX package's: the blinding draws, the
 polynomial order and the transcript absorbs are the reference's.
 
-Device work runs where the proving key's tensors live: NTTs, MSMs and the
-round-2/round-3 algebra are torch ops over K1–K4. The verifier is host
+Device work runs where the proving key's tensors live: NTTs, MSMs, the
+blinding tails (a fixed-base comb per key) and the round-2/round-3 algebra
+are torch ops over K1–K4. The verifier is host
 Python apart from its fold MSM, which runs on ``verify``'s ``device``.
 """
 
@@ -37,6 +38,11 @@ COSET_GEN = 7  # extended-domain coset representative; also the base for k_w
 # Extra coefficient slots per committed polynomial for the ZK blinding
 # b(X)·(X^n − 1), deg b < BLIND.
 BLIND = 4
+
+# The blinding tails' fixed-base comb: TAIL_BITS-bit digits of each tail
+# coefficient b_j pick d · 2^{TAIL_BITS·w} · [τ^{n+j}]G1 from a table per key.
+TAIL_BITS = 4
+TAIL_WINDOWS = 256 // TAIL_BITS
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +91,8 @@ class ProvingKey:
     x_ext: torch.Tensor  # (n_ext, 8): coset · ω_ext^j
     van_inv: torch.Tensor  # (n_ext, 8): 1 / (X^n − 1) on the coset
     g1_tail: list  # host affine [τ^{n+j}]G1, j < BLIND
+    # the tails' comb on the proving device (:func:`tail_comb`); not saved
+    tail_table: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -308,7 +316,37 @@ def keygen(compiled: CompiledCircuit, srs: kzg.SRS, k: int | None = None):
         van_inv=van_inv,
         g1_tail=g1_tail,
     )
+    tail_comb(pk)
     return pk, vk
+
+
+def tail_comb(pk: ProvingKey) -> torch.Tensor:
+    """The key's blinding-tail comb, built on its device at the first call
+    (keygen, a key load or a conversion) and kept on the key: coordinates
+    (3, BLIND · TAIL_WINDOWS · 16, 8), entry (j · TAIL_WINDOWS + w) · 16 + d
+    = d · 2^{4w} · [τ^{n+j}]G1, with d = 0 the identity."""
+    if pk.tail_table is None:
+        pk.tail_table = _build_tail_comb(pk.g1_tail, pk.device)
+    return pk.tail_table
+
+
+def _build_tail_comb(g1_tail, device) -> torch.Tensor:
+    """The window bases 2^{4w} · [τ^{n+j}]G1 on the host, then their 16
+    multiples by 15 K3 adds as wide as the bases."""
+    wbases = []
+    for p in g1_tail:
+        for _ in range(TAIL_WINDOWS):
+            wbases.append(p)
+            for _ in range(TAIL_BITS):
+                p = curve.g1_add(p, p)
+    digits = 1 << TAIL_BITS
+    with span("commit.tails.table", points=len(wbases) * digits):
+        base = g1_vec.points_to_device(wbases, device=device)
+        mults = [g1_vec.identity((len(wbases),), device=device)]
+        for _ in range(digits - 1):
+            mults.append(g1_vec.point_add(mults[-1], base))
+        return torch.stack([torch.stack([m[c] for m in mults], dim=1) for c in range(3)]).reshape(
+            3, len(wbases) * digits, LIMBS)
 
 
 def build_ext_arrays(fixed_polys, sigma_polys, table_polys, k: int, log_ext: int):
@@ -467,29 +505,32 @@ def _commit_batch(srs: kzg.SRS, polys_mont, kern=None) -> list:
     return g1_vec.points_from_device(kern.msm_many(std, pts, z_one=True))
 
 
-def _add_tails(heads, tails, g1_tail) -> list:
-    """heads[i] + Σ_j tails[i·BLIND + j]·[τ^{n+j}]G1 on the host."""
-    out = []
-    with span("commit.tails", products=sum(1 for b in tails if b)):
-        for i, acc in enumerate(heads):
-            for j in range(BLIND):
-                bj = tails[i * BLIND + j]
-                if bj:
-                    acc = curve.g1_add(acc, curve.g1_mul(g1_tail[j], bj))
-            out.append(acc)
-    return out
+def _add_tails(pk: ProvingKey, heads, tails_mont) -> list:
+    """heads[i] + Σ_j b_ij · [τ^{n+j}]G1 as host affine points, for the
+    projective heads (P, 8) x 3 and the Montgomery tails b (P, BLIND, 8) on
+    the key's device: the 4-bit digits of each b_ij pick its comb points, and
+    one K3 row scan sums each row [head, its BLIND · TAIL_WINDOWS comb
+    points]: its last prefix (``point_scan_sum`` would sum the prefixes,
+    weighting each point by its distance from the row's end). One download."""
+    comb = tail_comb(pk)
+    p = tails_mont.shape[0]
+    with span("commit.tails", products=p * BLIND):
+        digits = msm.digits_from_scalar_limbs(vecfield.from_mont(FR, tails_mont), TAIL_BITS)
+        slots = torch.arange(BLIND * TAIL_WINDOWS, device=digits.device) << TAIL_BITS
+        idx = slots + digits.transpose(1, 2).reshape(p, -1)  # (P, BLIND · TAIL_WINDOWS)
+        rows = torch.cat([torch.stack(heads)[:, :, None], comb[:, idx]], dim=2)
+        sums = tuple(c[:, -1] for c in g1_vec.point_scan(tuple(rows)))
+    return g1_vec.points_from_device(sums)
 
 
 def _commit_blinded_batch(pk: ProvingKey, polys_pad, kern=None) -> list:
-    """Commit (P, n+BLIND, 8) blinded polys: batched n-MSM for the heads +
-    host fixed-base adds of the BLIND tail coefficients."""
+    """Commit (P, n+BLIND, 8) blinded polys: batched n-MSM for the heads,
+    the BLIND tail coefficients' comb points added on the device."""
     kern = kern or _LOCAL_KERNELS
     n = polys_pad.shape[1] - BLIND
     std = vecfield.from_mont(FR, polys_pad[:, :n])
     pts = tuple(c[:n] for c in pk.srs.g1_powers)
-    heads = g1_vec.points_from_device(kern.msm_many(std, pts, z_one=True))
-    tails = vecfield.to_ints(FR, polys_pad[:, n:], mont=True)
-    return _add_tails(heads, tails, pk.g1_tail)
+    return _add_tails(pk, kern.msm_many(std, pts, z_one=True), polys_pad[:, n:])
 
 
 def _batch_eval_graph(polys, xpow):
@@ -522,9 +563,7 @@ def _open_many(pk: ProvingKey, polys_points, kern=None):
     q_all = torch.stack(qs)
     heads_std = vecfield.from_mont(FR, q_all[:, :n])
     pts = kern.msm_many(heads_std, tuple(c[:n] for c in pk.srs.g1_powers), z_one=True)
-    accs = g1_vec.points_from_device(pts)
-    tails = vecfield.to_ints(FR, q_all[:, n:], mont=True)
-    return list(zip(vals, _add_tails(accs, tails, pk.g1_tail)))
+    return list(zip(vals, _add_tails(pk, pts, q_all[:, n:])))
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +754,7 @@ def prove(pk: ProvingKey, witness, public_inputs: list[int],
     which times each round with a device sync at its edges; without it the
     rounds are spans alone. ``kern``: kernel provider (default
     :class:`LocalKernels`)."""
+    tail_comb(pk)  # once per key, outside the proof's spans
     with span("prove"):
         return _prove(pk, witness, public_inputs, rng,
                       phases.phase if phases is not None else span, kern or _LOCAL_KERNELS)

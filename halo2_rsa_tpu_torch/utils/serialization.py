@@ -158,7 +158,8 @@ def save_pk(pk, path: str) -> None:
 
 def load_pk(path: str, srs: kzg.SRS) -> plonk.ProvingKey:
     """ProvingKey from :func:`save_pk`'s npz, on ``srs``'s device; the
-    extended-coset arrays are rebuilt there (``plonk.build_ext_arrays``)."""
+    extended-coset arrays and the tail comb are rebuilt there
+    (``plonk.build_ext_arrays``, ``plonk.tail_comb``)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     dev = srs.g1_powers[0].device
@@ -173,7 +174,7 @@ def load_pk(path: str, srs: kzg.SRS) -> plonk.ProvingKey:
     fixed_ext, sigma_ext, table_ext, l0_ext, x_ext, van_inv = plonk.build_ext_arrays(
         fixed_polys, sigma_polys, table_polys, vk.k, log_ext
     )
-    return plonk.ProvingKey(
+    pk = plonk.ProvingKey(
         vk=vk,
         srs=srs,
         wire_source=z["wire_source"],
@@ -196,6 +197,8 @@ def load_pk(path: str, srs: kzg.SRS) -> plonk.ProvingKey:
             for p in meta["g1_tail"]
         ],
     )
+    plonk.tail_comb(pk)
+    return pk
 
 
 def load_vk(path: str) -> plonk.VerifyingKey:

@@ -3,9 +3,10 @@
 Off (the default), ``span`` is the shared null context: no clock is read, no
 profiler range opened, nothing recorded. On, the k=5 golden proof records
 its rounds and the steps inside them with their parents, requests and
-counts, a small batched replay records one span per group, and a build with
-SHA-256 in its dynamic-length mode records ``sha256.dynamic`` inside
-``synth`` with its blocks and the message's bytes; proof bytes
+counts (the key's tail comb is not built inside it), a small batched
+replay records one span per group, and a build with SHA-256 in its
+dynamic-length mode records ``sha256.dynamic`` inside ``synth`` with its
+blocks and the message's bytes; proof bytes
 and replayed witnesses are the same with tracing on and off. Under
 ``torch.profiler`` the spans appear as ``h2r/`` ranges, each inside its
 parent's.
@@ -150,6 +151,10 @@ def test_golden_prove_spans_parents_requests_counts(golden_case, traced):
     assert [s.counts for s in r1] == [{"batch": wires + tables, "log_n": pk.vk.k}]
     r1_tails = [s for s in by["commit.tails"] if spans[s.parent].name == "round1_commit"]
     assert r1_tails[0].counts == {"products": plonk.BLIND * (wires + tables)}
+    r5_tails = [s for s in by["commit.tails"] if spans[s.parent].name == "round5_open"]
+    assert [s.counts for s in r5_tails] == [{"products": 2 * plonk.BLIND}]
+    # the key's tail comb is built with the key, never inside a proof
+    assert "commit.tails.table" not in names and golden_case["pk"].tail_table is not None
     assert all(s.counts["points"] >= n and s.counts["polys"] >= 1 for s in by["msm"])
     assert all(s.counts["bytes"] > 0 for s in by["to_host"])
 
