@@ -2,9 +2,10 @@
 under ``tests/data`` and that the port must reproduce byte for byte.
 
 ``scripts/make_torch_golden.py`` proves them once with the JAX package; the
-CPU tests and ``chip_smoke.py`` rebuild the same circuits with the port's
-carried builder and compare. The circuit code takes the builder classes as
-arguments, so one definition serves both packages.
+CPU tests, the card tests (``pytest -m cuda``) and the first entries of the
+card gate's path table (``chip_smoke.CONFIGS``) rebuild the same circuits
+with the port's carried builder and compare. The circuit code takes the
+builder classes as arguments, so one definition serves both packages.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ Each body is ``fn(rank, world, device, *args)`` for :func:`.launch.spawn`:
 importable by name (so a rank imports the port and nothing else — no JAX,
 no test module), SPMD (every rank calls the same collectives in the same
 order), and it returns host values (numpy arrays, bytes, dicts). Inputs
-arrive as numpy arrays. The CPU tests, ``entry.dryrun_multichip`` and
-``chip_smoke.py`` run these same bodies.
+arrive as numpy arrays. The CPU tests, ``entry.dryrun_multichip``, the card
+gate ``chip_smoke.py`` (its multi-rank phase) and ``parallel.scaling`` run
+these same bodies.
 """
 
 from __future__ import annotations
@@ -376,7 +377,8 @@ def dryrun(rank: int, world: int, device: str, budget_s: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py phase 13
+# The flagship proven from saved keys, and config #1 on the sharded checkers
+# (chip_smoke.py's multi-rank phase; prove_from_keys also parallel.scaling)
 # ---------------------------------------------------------------------------
 
 
@@ -473,13 +475,12 @@ def prove_from_keys(rank: int, world: int, device: str, paths: dict, witness, pu
     return out
 
 
-def checker_rates(rank: int, world: int, device: str, compiled, w_base, batch: int,
-                  bad: dict, plan: list, iters: int) -> dict:
+def sharded_check_counts(rank: int, world: int, device: str, compiled, w_base, batch: int,
+                         bad: dict, plan: list) -> dict:
     """A batch of ``batch`` witnesses (``w_base`` tiled) and a copy with the
     instances of ``bad`` ({instance: (W, 8) witness}) replaced, checked by
     each (mesh shape, "sharded" | "wire") of ``plan``: {(shape, kind):
-    dict(valid counts, counts of the bad instances, seconds to shard or
-    route, seconds per check over ``iters`` checks, checks/s)}."""
+    dict(valid=the batch's violation counts, bad=the bad instances')}."""
     w = np.tile(w_base, (batch // len(w_base), 1, 1))
     wbad = w.copy()
     for inst, vals in bad.items():
@@ -489,16 +490,6 @@ def checker_rates(rank: int, world: int, device: str, compiled, w_base, batch: i
         mesh = make_mesh(shape, ("data", "rows"), device=device)
         chk = (ShardedChecker if kind == "sharded" else WireShardedChecker)(compiled, mesh)
         prep = chk.shard_witness if kind == "sharded" else chk.route
-        t = time.perf_counter()
-        x = prep(w)
-        _sync(device)
-        prep_s = time.perf_counter() - t
-        corrupted = chk.check(prep(wbad))
-        valid = chk.check(x)
-        t = time.perf_counter()
-        for _ in range(iters):
-            chk.check(x)
-        per = (time.perf_counter() - t) / iters
-        out[tuple(shape), kind] = dict(valid=valid, bad=corrupted[sorted(bad)], prep_s=prep_s,
-                                       s_per_check=per, checks_per_s=batch / per)
+        out[tuple(shape), kind] = dict(valid=chk.check(prep(w)),
+                                       bad=chk.check(prep(wbad))[sorted(bad)])
     return out

@@ -10,7 +10,7 @@ card.
 
 ``--root`` is the checkout to time (default: this one); its kernels build
 inside it. The shapes are read from ``chiprun_out/chip_smoke.json`` (phase
-6). ``k2`` runs ``chip_smoke.k2_times`` on that checkout's wrappers (a
+4). ``k2`` runs ``chip_smoke.k2_times`` on that checkout's wrappers (a
 checkout without ``point_scan_mixed`` runs its K2 as C single adds on inputs
 sliced beforehand), then times ``msm_many`` at the flagship's four shapes (P
 = 2, 5, 7 and 11 polys over 2^15 affine SRS points, ``z_one``; wall time
@@ -31,21 +31,15 @@ K1-prefix's (``chip_smoke.k1_prefix_times``; a checkout without
 ``reverse`` takes a suffix product as batch_inv_nz did, flipped, scanned and
 flipped back) and its ``vecfield.mont_mul`` at K1's (``chip_smoke.k1_times``:
 the operands of each recorded broadcast pattern, which a checkout that
-materialises them copies first), then end to end: the flagship's
-warm prove (its proof from ``random.Random(chip_smoke.KEY_SEED)``, hashed,
-and the card time and launches of every ``h2r_mont_*`` kernel over one warm
-prove, from ``torch.profiler``), the RSA-1024 SHA-64 path's warm prove (k=17)
-and config #1's batched check (checks/s). One JSON line goes to stdout and
-is appended to that file.
+materialises them copies first). Whole proofs are timed by the benchmark
+(``benchmark/run.py``), not here. One JSON line goes to stdout and is
+appended to that file.
 """
 
 import argparse
-import hashlib
 import inspect
 import json
 import os
-import random
-import re
 import subprocess
 import sys
 import time
@@ -56,7 +50,6 @@ OUT = os.path.join(OUT_DIR, "time_kernels.jsonl")
 MSM_POLYS = (2, 5, 7, 11)  # the flagship's four msm_many calls per prove
 MSM_LOG_N = 15
 MSM_RUNS = 5
-WARM_PROVES = 3  # warm proves timed per path in the k1 run
 
 
 def k2_rows(smoke, recorded) -> tuple:
@@ -226,81 +219,6 @@ def k1_rows(smoke, recorded) -> list:
     return rows + scans + muls
 
 
-def _k1_profile(run) -> dict:
-    """{kernel: [device ms, launches]} of every ``h2r_mont_*`` kernel over
-    ``run()``, from ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        m = re.search(r"(h2r_mont_\w+?)_kernel", ev.key)
-        if ev.device_type != torch.autograd.DeviceType.CUDA or not m:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        ms, n = out.get(m.group(1), (0.0, 0))
-        out[m.group(1)] = (ms + us / 1e3, n + ev.count)
-    return {k: list(v) for k, v in sorted(out.items())}
-
-
-def _warm_times(run) -> list:
-    import torch
-
-    runs = []
-    for _ in range(WARM_PROVES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
-    return runs
-
-
-def prove_rows(smoke) -> list:
-    """The flagship's and the SHA-64 path's warm proves (a cold one first),
-    each proof from ``random.Random(smoke.KEY_SEED)`` and hashed; the K1
-    family's card time over one flagship warm prove; config #1's checks/s."""
-    import torch
-
-    from halo2_rsa_tpu_torch.prover import kzg, plonk
-
-    out = []
-    for kind, build in (("flagship", smoke.flagship_circuit), ("sha64", smoke.sha_circuit)):
-        circ, compiled, k = build()
-        srs = kzg.setup((1 << k) + plonk.BLIND, tau=777, device="cuda")
-        pk, vk = plonk.keygen(compiled, srs, k=k)
-
-        def prove(pk=pk, circ=circ):
-            return plonk.prove(pk, circ.builder.values, circ.public_inputs,
-                               rng=random.Random(smoke.KEY_SEED))
-
-        proof = prove()
-        if not plonk.verify(vk, proof, circ.public_inputs):
-            raise AssertionError(f"{kind}: the proof does not verify")
-        row = dict(op="prove", kind=kind, k=k, digest=hashlib.sha256(proof).hexdigest())
-        if kind == "flagship":
-            row["k1_profile"] = _k1_profile(prove)
-        runs = _warm_times(prove)
-        row.update(warm_s=runs, mean_s=sum(runs) / len(runs), min_s=min(runs))
-        out.append(row)
-        del srs, pk, vk
-    builders, c1, w, device_arrays = smoke.config1_inputs()
-    dev = device_arrays("cuda")
-    wb = torch.from_numpy(w).cuda()
-    smoke.batched_violations(c1, wb, dev)
-    ms, wall_ms, (gates, lk) = smoke.batched_check_ms(c1, wb, dev)
-    counts = torch.stack([gates, lk]).cpu().numpy().tobytes()
-    out.append(dict(op="check", kind="config1", ms=ms, wall_ms=wall_ms,
-                    checks_per_s=smoke.CHECK_BATCH / (ms / 1e3),
-                    digest=hashlib.sha256(counts).hexdigest()))
-    return out
-
-
 def _mismatches(kernel: str, rows: list) -> list:
     """Shapes whose hash differs from an earlier line's in the output file."""
     if not os.path.exists(OUT):
@@ -341,7 +259,7 @@ def main() -> int:
         recorded = json.load(fh)
     one_launch = None  # K2: whether the checkout's scan is one launch
     if args.kernel == "k1":
-        rows = k1_rows(chip_smoke, recorded) + prove_rows(chip_smoke)
+        rows = k1_rows(chip_smoke, recorded)
     elif args.kernel == "k2":
         rows, one_launch = k2_rows(chip_smoke, recorded)
         rows += msm_rows(chip_smoke)

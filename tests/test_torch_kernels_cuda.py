@@ -1,24 +1,27 @@
-"""The hand-written CUDA kernels K1-K4 (K3 also as the MSM's row scans), P1
-and P2 against their plain torch versions.
+"""The hand-written CUDA kernels K1-K4 (K3 also as the MSM's row scans and
+bucket splice), the NTT, P1 and P2 against their plain torch versions.
 
-K1 is also held with a broadcast operand read in place, and its own kernels
-K1-pow (the exponentiation) and K1-prefix (the prefix product) at lengths
-around K1-prefix's tile. The NTT kernel (one launch per stage) is held
-against the torch stage loop from 2 to 2^21 elements.
+K1 is also held at 2^20 products and with a broadcast operand read in
+place, and its own kernels K1-pow (the exponentiation) and K1-prefix (the
+prefix product) at lengths around K1-prefix's tile and at one row of more
+than tile^2 elements. K3 is also held on coordinates lifted by q, as its
+lazy core may hold them, and its row scans over 128 rows with every cluster
+size. The NTT kernel (one launch per stage) is held against the torch stage
+loop from 2 to 2^21 elements.
 
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
-marker and skip without a card (the card gate ``chip_smoke.py`` runs the
-same comparisons at the main path's shapes). Every comparison is bitwise.
-The argument checks, the CPU dispatch, the SASS loop split and a limb-level
-model of the lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's
-steps on it run everywhere. Three modules whose products run through K1 are
-checked on the card too: the constraint checker against itself on the CPU,
-the key artifacts saved and loaded back on the card, and batched witness
-replay against itself on the CPU and a golden proof from its witness. A
+marker and skip without a card. Every comparison is bitwise. The argument
+checks, the CPU dispatch, the SASS loop split and a limb-level model of the
+lazy field core (csrc/fq_lazy.cuh) and of K4's, K2's and K3's steps on it
+run everywhere. Three modules whose products run through K1 are checked on
+the card too: the constraint checker against itself on the CPU, the key
+artifacts saved and loaded back on the card, and batched witness replay
+against itself on the CPU and a golden proof from its witness. A
 dynamic-length SHA-256 circuit is proved there for two message lengths under
 one key.
 """
 
+import itertools
 import math
 import os
 import random
@@ -49,12 +52,16 @@ def _points(n, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 1 << 20])
 @pytest.mark.parametrize("field", ALL_FIELDS, ids=lambda f: f.name)
-def test_k1_kernel_matches_plain(cuda, field):
+def test_k1_kernel_matches_plain(cuda, field, n):
+    """n products, every pair of 0, 1 and p - 1 among them; the first
+    against Python ints too."""
     fc = vecfield.consts(field)
     rng = random.Random(3)
-    xs = [0, 1, field.p - 1] + [rng.randrange(field.p) for _ in range(4093)]
-    ys = [field.p - 1] * 3 + [rng.randrange(field.p) for _ in range(4093)]
+    edge = [0, 1, field.p - 1]
+    xs = edge * 3 + [rng.randrange(field.p) for _ in range(n - 9)]
+    ys = [e for e in edge for _ in range(3)] + [rng.randrange(field.p) for _ in range(n - 9)]
     a = vecfield.from_ints(fc, xs, device=cuda)
     b = vecfield.from_ints(fc, ys, device=cuda)
     before = cuda_mont.LAUNCHES["mont_mul"]
@@ -62,6 +69,7 @@ def test_k1_kernel_matches_plain(cuda, field):
     assert cuda_mont.LAUNCHES["mont_mul"] == before + 1
     assert torch.equal(got, cuda_mont.mont_mul_plain(fc, a, b))
     assert torch.equal(got.cpu(), cuda_mont.mont_mul(fc, a.cpu(), b.cpu()))
+    assert vecfield.to_ints(fc, got[:16]) == [x * y % field.p for x, y in zip(xs, ys[:16])]
 
 
 @pytest.mark.cuda
@@ -70,7 +78,8 @@ def test_k1_pow_kernel_matches_plain(cuda, field):
     fc = vecfield.consts(field)
     a = mont_layout.random_elements(fc, 300, 4, cuda)
     a[:3] = vecfield.from_ints(fc, [0, 1, field.p - 1], device=cuda)
-    for e in (0, 1, 2, 3, field.p - 2, (1 << 253) + 12345, (1 << 256) - 1):
+    for e in (0, 1, 2, 3, field.p - 2, (1 << 253) + 12345, (1 << 256) - 1,
+              random.Random(13).getrandbits(253) | 1 << 252):
         before = cuda_mont.LAUNCHES["mont_pow"]
         got = cuda_mont.mont_pow(fc, a, e)
         assert cuda_mont.LAUNCHES["mont_pow"] == before + 1
@@ -123,6 +132,10 @@ def test_k1_prefix_kernel_matches_plain(cuda, field):
     for rows in (1, 3):
         x = mont_layout.random_elements(fc, rows * lengths[-1], 5 + rows, cuda)
         _prefix_check(fc, x.view(rows, lengths[-1], 8), lengths, cuda)
+        ints = vecfield.to_ints(fc, x[:8])
+        want = list(itertools.accumulate(ints, lambda u, v: u * v % field.p))
+        got = cuda_mont.mont_prefix(fc, x[None, :8].contiguous())[0]
+        assert vecfield.to_ints(fc, got) == want
 
 
 @pytest.mark.cuda
@@ -152,7 +165,7 @@ def test_k1_prefix_wrapper_rejects_bad_arguments(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("polys", [1, 4, 11])
-@pytest.mark.parametrize("log_n", [1, 2, 3, 10, 15, 17, 18, 21])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 5, 10, 12, 15, 17, 18, 21])
 def test_ntt_kernel_matches_loop(cuda, log_n, polys, inverse):
     """The NTT kernel (csrc/ntt.cu) bitwise against the torch stage loop on
     the card, from 2 to 2^21 elements (the extended domain at k=18); one
@@ -176,8 +189,13 @@ def test_ntt_kernel_matches_loop(cuda, log_n, polys, inverse):
 @pytest.mark.cuda
 def test_ntt_public_functions_on_the_card(cuda):
     """ntt/intt and their batches on the card: the round trip is the
-    identity, and each equals the CPU's result."""
+    identity, and each equals the CPU's result; at 2^4 both directions
+    equal the host DFT."""
     fc = ntt.FR
+    vals = [random.Random(46).randrange(fc.field.p) for _ in range(16)]
+    fwd = ntt.ntt(vecfield.from_ints(fc, vals, device=cuda), 4)
+    assert vecfield.to_ints(fc, fwd) == ntt.ntt_host(vals)
+    assert vecfield.to_ints(fc, ntt.intt(fwd, 4)) == vals
     log_n = 12
     x = mont_layout.random_elements(fc, 3 << log_n, 77, cuda).view(3, 1 << log_n, 8)
     fwd = ntt.ntt_batch(x, log_n)
@@ -211,24 +229,63 @@ def test_ntt_kernel_rejects_bad_arguments(cuda):
     assert ntt.LAUNCHES["ntt"] == before
 
 
+def _plus_q(t):
+    """Canonical limbs (..., 8) -> the same residue plus q, in [q, 2q): a
+    value as the lazy core may hold it."""
+    v, out, carry = cuda_mont.u64(t), [], 0
+    for j in range(8):
+        s = v[..., j] + ((curve.Q >> (32 * j)) & M32) + carry
+        out.append(s & M32)
+        carry = s >> 32
+    return cuda_mont.to_int32(torch.stack(out, dim=-1))
+
+
+def _lifted(pt, lifts):
+    """pt with coordinate k (0 X, 1 Y, 2 Z) lifted by q on each (k, lanes)."""
+    out = [c.clone() for c in pt]
+    for k, lanes in lifts:
+        out[k][lanes] = _plus_q(out[k][lanes])
+    return tuple(out)
+
+
 @pytest.mark.cuda
 def test_k2_k3_k4_kernels_match_plain(cuda):
     fq = g1_vec.FQ
-    p1 = _points(1000, cuda)
-    p2 = tuple(c.roll(3, 0).contiguous() for c in p1)
-    xy = tuple(c.roll(5, 0).contiguous() for c in g1_vec.points_to_affine(
-        tuple(torch.cat([c[:1], c[2:]]) for c in p1))[:2])
-    p1m = tuple(torch.cat([c[:1], c[2:]]) for c in p1)
-    for key, kern, plain, args in (
-        ("g1_add", cuda_g1.point_add, cuda_g1.point_add_plain, (p1, p2)),
-        ("g1_add_mixed", cuda_g1.point_add_mixed, cuda_g1.point_add_mixed_plain, (p1m, xy)),
-    ):
-        before = cuda_g1.LAUNCHES[key]
-        got = kern(fq, *args)
-        assert cuda_g1.LAUNCHES[key] == before + 1
-        want = plain(fq, *args)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    base = _points(1000, cuda)  # lane 1 is the identity
+    # K3 and K2's single mixed add at 1000 and 2^16 points (the 1000 tiled):
+    # K3's second operand is P itself on lanes 0-63 (P+P), -P on lanes
+    # 64-127 (P+(-P)) and the first rotated by 3 elsewhere; K3 also on
+    # coordinates lifted by q on both sides, as the lazy core holds them
+    # between steps (an identity's X and Z then equal q); a few lanes
+    # against the host's affine sums
+    for n in (1000, 1 << 16):
+        p1 = tuple(c.repeat(-(-n // 1000), 1)[:n].contiguous() for c in base)
+        neg, rot = g1_vec.point_neg(p1), tuple(c.roll(3, 0) for c in p1)
+        p2 = tuple(torch.cat([a[:64], b[64:128], c[128:]]) for a, b, c in zip(p1, neg, rot))
+        keep = torch.ones(n, dtype=torch.bool, device=cuda)
+        keep[1::1000] = False  # the identity has no affine form
+        p1m = tuple(c[keep] for c in p1)
+        xy = tuple(c.roll(5, 0).contiguous() for c in g1_vec.points_to_affine(p1m)[:2])
+        for key, kern, plain, args in (
+            ("g1_add", cuda_g1.point_add, cuda_g1.point_add_plain, (p1, p2)),
+            ("g1_add_mixed", cuda_g1.point_add_mixed, cuda_g1.point_add_mixed_plain, (p1m, xy)),
+        ):
+            before = cuda_g1.LAUNCHES[key]
+            got = kern(fq, *args)
+            assert cuda_g1.LAUNCHES[key] == before + 1
+            want = plain(fq, *args)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (key, n)
+            if key == "g1_add":
+                lanes = [0, 1, 64, 65, 128, 129, 200, n - 1]
+                pts = [g1_vec.points_from_device(tuple(c[lanes] for c in p)) for p in (p1, p2)]
+                assert g1_vec.points_from_device(tuple(c[lanes] for c in got)) == [
+                    curve.g1_add(u, v) for u, v in zip(*pts)]
+                lp1 = _lifted(p1, [(1, slice(0, 64)), (0, slice(100, 300)), (2, slice(200, 400)),
+                                   (0, slice(1, None, 1000)), (2, slice(1, None, 1000))])
+                lp2 = _lifted(p2, [(1, slice(64, 128)), (2, slice(150, 350)), (0, slice(500, 700))])
+                for g, w in zip(cuda_g1.point_add(fq, lp1, lp2), want):
+                    assert torch.equal(g, w), ("lifted", n)
     # K2's scan at C = 1 and 64 over 3 and 1000 rows, and the bucket scan's
     # smallest shape (2^14 rows x 64); the starts are the 1000 points tiled
     # (lane 1 the identity), row 0 first adds its own start (P+P), row 2
@@ -282,8 +339,13 @@ def test_kernel_wrappers_reject_bad_arguments(cuda):
 @pytest.mark.cuda
 def test_k1_reads_a_broadcast_operand_in_place(cuda):
     fc = vecfield.consts(ALL_FIELDS[1])
+    # cycle (b's rows over a's leading axes) and repeat (a row per poly),
+    # small and at the prover's widths
     pairs = [((1 << 14, 8), (8,)), ((3, 4099, 8), (4099, 8)), ((7, 4099, 8), (7, 1, 8)),
-             ((2, 3, 37, 8), (2, 3, 1, 8)), ((37, 8), (37, 8)), ((5, 1, 8), (1, 37, 8))]
+             ((2, 3, 37, 8), (2, 3, 1, 8)), ((37, 8), (37, 8)), ((5, 1, 8), (1, 37, 8)),
+             ((1 << 20, 8), (8,)), ((4, 1 << 18, 8), (1, 1 << 18, 8)),
+             ((3, 5, 1 << 16, 8), (5, 1 << 16, 8)), ((11, 95_325, 8), (11, 1, 8)),
+             ((1 << 10, 1 << 10, 8), (1 << 10, 1, 8))]
     for sa, sb in pairs:
         a = mont_layout.random_elements(fc, math.prod(sa[:-1]), 6, cuda).view(sa)
         b = mont_layout.random_elements(fc, math.prod(sb[:-1]), 7, cuda).view(sb)
@@ -357,26 +419,34 @@ def test_k3_wrapper_rejects_other_fields_and_misaligned_tensors(cuda):
     assert cuda_g1.LAUNCHES["g1_add"] == before
 
 
-def _scan_rows_input(base, length):
-    """(3, length) points drawn from ``base`` (lane 1 the identity): row 0
-    as drawn, row 1 one point repeated (P+P in round 0), row 2 pairs (P, -P)
-    (P+(-P) in round 0)."""
-    ps = tuple(c.repeat(-(-3 * length // c.shape[0]), 1)[: 3 * length].reshape(3, length, 8)
-               .contiguous() for c in base)
+def _scan_rows_input(base, rows, length):
+    """(rows, length) points drawn from ``base`` (lane 1 the identity): row
+    0 as drawn, row 1 one point repeated (P+P in round 0), row 2 pairs (P,
+    -P) (P+(-P) in round 0), row 3 (given more than 3 rows) the identity
+    throughout, the others as drawn."""
+    ps = tuple(c.repeat(-(-rows * length // c.shape[0]), 1)[: rows * length]
+               .reshape(rows, length, 8).contiguous() for c in base)
     odd = length // 2
     for c in ps:
         c[1] = c[1, 0].clone()
         c[2, 1::2] = c[2, 0::2][:odd].clone()
     ps[1][2, 1::2] = vecfield.sub(g1_vec.FQ, torch.zeros_like(ps[1][2, 1::2]), ps[1][2, 1::2])
+    if rows > 3:
+        for c, i in zip(ps, g1_vec.identity((length,), device=base[0].device)):
+            c[3] = i
     return ps
 
 
 @pytest.mark.cuda
-def test_k3_scan_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("rows", [3, 128])
+def test_k3_scan_kernel_matches_plain(cuda, rows):
+    """Rows of 1 to 512 points, the scan and its halving tree, with the
+    wrappers' cluster choice and with 1, 2, 4 and 8 blocks per row; 128 rows
+    of 8 blocks are more than the card's SMs hold at once."""
     fq = g1_vec.FQ
     base = _points(600, cuda)
     for length in (1, 2, 5, 8, 255, 256, 511, 512):
-        ps = _scan_rows_input(base, length)
+        ps = _scan_rows_input(base, rows, length)
         want = {False: cuda_g1.point_scan_plain(fq, ps), True: cuda_g1.point_scan_sum_plain(fq, ps)}
         for tree, wrapper in ((False, cuda_g1.point_scan), (True, cuda_g1.point_scan_sum)):
             for cluster in (None, 1, 2, 4, 8):
@@ -385,7 +455,7 @@ def test_k3_scan_kernel_matches_plain(cuda):
                        else cuda_g1._scan_rows(fq, ps, tree, cluster))
                 assert cuda_g1.LAUNCHES["g1_scan"] == before + 1
                 for g, w in zip(got, want[tree]):
-                    assert torch.equal(g, w), (length, tree, cluster)
+                    assert torch.equal(g, w), (rows, length, tree, cluster)
 
 
 @pytest.mark.cuda
@@ -431,7 +501,8 @@ def _splice_input(base, rows, npad, c, buckets, device):
 def test_k3_splice_kernel_matches_plain(cuda):
     fq = g1_vec.FQ
     base = _points(600, cuda)
-    for rows, npad, c, buckets in ((3, 40, 8, 16), (4, 512, 64, 256), (2, 4096, 64, 256)):
+    for rows, npad, c, buckets in ((3, 40, 8, 16), (4, 512, 64, 256), (2, 4096, 64, 256),
+                                   (128, 1 << 15, 64, 256)):
         within, incl, ends = _splice_input(base, rows, npad, c, buckets, cuda)
         before = cuda_g1.LAUNCHES["g1_splice"]
         got = cuda_g1.bucket_splice(fq, within, incl, ends)
