@@ -44,8 +44,10 @@ final line):
    K1-pow at 2^14 elements, the NTT at the same calls at k=18's sizes, K2,
    K3 and K4 at 2^16 points): each bitwise against its plain version, then
    timed on the card alone (``queued_ms``: the launches queued behind a spin
-   kernel) and paced by the host, beside an empty launch; K3's row scans
-   with every cluster size; K1 beside P2's staged tiles;
+   kernel) and paced by the host, beside an empty launch; K2 at the path's
+   shapes also in the path's form (its rows read through a bucket sort's
+   permutation, held against the dense launch); K3's row scans with every
+   cluster size; K1 beside P2's staged tiles;
 5. P1, the integer op-rate probe: each of its 7 bodies at (16, 2^20), REPS
    64, bitwise against its plain version on the card, then the probe's own
    timed run (``bench.vpu_ops.run``) with its launches counted;
@@ -1650,6 +1652,49 @@ def k2_times(make, shapes, start, rows, plain=None) -> list:
     return out
 
 
+def k2_indexed_times(shapes) -> list:
+    """K2 reading its affine points in place through a bucket sort's
+    permutation (``cuda_g1.IndexedRows``), as the MSM's bucket scan runs it,
+    at each (kind, m, c) of ``shapes``: m * c / n windows' stable sorts of
+    random 8-bit digits over one n-point affine source (n = the largest
+    power of two up to 2^15 that divides m * c: the MSM's segment) from
+    ``_test_points``, every start the identity. Held bitwise against the
+    dense launch on the rows gathered in that order; then ms per call on
+    the card alone (``queued_ms``) and paced by the host (``chain_ms``), and
+    the dense launch's queued ms on the gathered rows (``dense_ms``)."""
+    import math
+
+    import torch
+
+    from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
+    from halo2_rsa_tpu_torch.utils.profiling import chain_ms
+
+    fq = g1_vec.FQ
+    _, (ax, ay), _ = _test_points(K4_BIG, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = []
+    for kind, m, c in shapes:
+        n = math.gcd(m * c, 1 << 15)
+        digits = torch.randint(0, 256, (m * c // n, n), device="cuda", generator=gen)
+        order = torch.sort(digits, dim=1, stable=True)[1].view(m, c, 1)
+        rows = cuda_g1.IndexedRows(order, ax[:n], ay[:n])
+        dense = (ax[order[..., 0]], ay[order[..., 0]])
+        start = g1_vec.identity((m,), device="cuda")
+        got = cuda_g1.point_scan_mixed(fq, start, rows)
+        err = _max_abs_err(got, cuda_g1.point_scan_mixed(fq, start, dense))
+        if err:
+            raise AssertionError(f"K2 through a permutation at {m} rows x C {c} differs from "
+                                 f"the dense launch on the gathered rows")
+        del got
+        indexed = lambda q: (cuda_g1.point_scan_mixed(fq, start, rows), q)[1]  # noqa: E731
+        gathered = lambda q: (cuda_g1.point_scan_mixed(fq, start, dense), q)[1]  # noqa: E731
+        out.append(dict(kind=kind, m=m, c=c, source=n, max_abs_err=err,
+                        ms=queued_ms(indexed, start[0], K2_ITERS),
+                        host_paced_ms=chain_ms(indexed, start[0], K2_ITERS),
+                        dense_ms=queued_ms(gathered, start[0], K2_ITERS)))
+    return out
+
+
 # the k=18 cell's NTTs are the flagship's at 8x the rows: its circuit has the
 # same 8 wires and 3 lookup tables, so the same polys a call
 NTT_K18_SHIFT = 3
@@ -1733,7 +1778,8 @@ def phase_ntt(report, kernels):
 
 def phase_k2(report, kernels):
     """K2 at the path's shapes and at 2^16 points with C = 1
-    (``k2_times``)."""
+    (``k2_times``), and at the path's shapes again in the path's form, its
+    rows read through a sort's permutation (``k2_indexed_times``)."""
     from halo2_rsa_tpu_torch.prover import cuda_g1, g1_vec
 
     fq = g1_vec.FQ
@@ -1749,14 +1795,30 @@ def phase_k2(report, kernels):
              f"{r['host_paced_ms']:.4f} ms"
              + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
              + f" | {r['launches_per_warm_prove']} launches per warm prove")
+    # the path's form: the bucket scan's points read through the sort's
+    # permutation; a path shape's ms (the bounds' and the rank's) is that
+    # form's, beside the dense launch's (dense_ms)
+    indexed = {(r["m"], r["c"]): r for r in k2_indexed_times(
+        [s_ for s_ in shapes if s_[0] == "path"])}
+    for r in out:
+        if r["kind"] != "path":
+            continue
+        ind = indexed[r["m"], r["c"]]
+        line(f"[4 K2] indexed m={r['m']} C={r['c']} from {ind['source']} points: bitwise equal "
+             f"to the dense launch on the gathered rows | card {ind['ms']:.4f} ms (dense "
+             f"{ind['dense_ms']:.4f} ms on the same rows), host-paced "
+             f"{ind['host_paced_ms']:.4f} ms")
+        r.update(dense_ms=r["ms"], ms=ind["ms"], host_paced_ms=ind["host_paced_ms"],
+                 source=ind["source"])
     report["k2"] = dict(shapes=out)
     # the kernels line's K2 row: the path's largest shape
     row = max((r for r in out if r["kind"] == "path"), key=lambda r: r["m"])
     kernels["K2"].update(
         ms=row["ms"], host_paced_ms=row["host_paced_ms"], plain_ms=row["plain_ms"],
         max_abs_err=max([kernels["K2"]["max_abs_err"]] + [r["max_abs_err"] for r in out]),
-        shape=f"{row['m']} rows x C {row['c']} (the bucket scan of one pipeline of the "
-              f"flagship's largest msm_many call)",
+        shape=f"{row['m']} rows x C {row['c']} read through a stable sort's order from "
+              f"{row['source']} points (the bucket scan of one pipeline of the flagship's "
+              f"largest msm_many call)",
     )
 
 

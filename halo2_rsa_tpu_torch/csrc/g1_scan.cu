@@ -12,6 +12,13 @@
 // once and stores each prefix once, in the (rows, C, 8) layout that the
 // bucket-boundary gathers read.
 //
+// The bucket scan's affine points are the segment's points in digit order.
+// Given the sort's permutation (`idx`, one int64 source row per step), step k
+// of a row reads source point idx[k] of an (N, 8) source in place, so that no
+// sorted copy of x and y is gathered into device memory first (the segment's
+// 2^15 points, 2 MB, stay in L2; the copy was (rows * C) rows of 32 bytes per
+// coordinate). Without it, step k reads row k of a dense (rows * C, 8) copy.
+//
 // What bounds it on an H100: per add it reads 2 coordinates and writes 3 (160
 // bytes) and runs 11 Montgomery products, mostly IMAD.WIDE.U32.X on the FMA
 // pipe, so at the prover's widest scan (2^16 rows) it is bound by the FMA
@@ -61,12 +68,14 @@ __device__ __forceinline__ void add_mixed_lazy(uint32_t x[fq::N], uint32_t y[fq:
   fq::add(m1, m0, z);  // Z3
 }
 
-// Start points (m, 8) per coordinate, affine points and prefixes (m, c, 8).
+// Start points (m, 8) per coordinate, prefixes (m, c, 8); affine points
+// (m, c, 8), or with `idx` (m * c int64) rows of an (N, 8) source.
 __global__ void h2r_g1_scan_mixed_kernel(const uint32_t* __restrict__ x1p,
                                          const uint32_t* __restrict__ y1p,
                                          const uint32_t* __restrict__ z1p,
                                          const uint32_t* __restrict__ x2p,
                                          const uint32_t* __restrict__ y2p,
+                                         const long long* __restrict__ idx,
                                          uint32_t* __restrict__ x3p, uint32_t* __restrict__ y3p,
                                          uint32_t* __restrict__ z3p, long long m, int c) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,30 +85,39 @@ __global__ void h2r_g1_scan_mixed_kernel(const uint32_t* __restrict__ x1p,
   load8(y1p, i, y);
   load8(z1p, i, z);
   const long long end = (i + 1) * c;
-  load8(x2p, i * c, ax);
-  load8(y2p, i * c, ay);
+  // source row of step k: idx[k], or k itself
+  const long long k0 = i * c;
+  long long src = idx ? idx[k0] : k0;
+  load8(x2p, src, ax);
+  load8(y2p, src, ay);
+  src = k0 + 1 < end ? k0 + 1 : k0;
+  if (idx) src = idx[src];
 #pragma unroll 1
-  for (long long k = i * c; k < end; ++k) {
-    // the next step's point is loaded while this step computes (the last
-    // step loads its own again)
+  for (long long k = k0; k < end; ++k) {
+    // the next step's point (its source row known a step ahead) and the
+    // step after's source row are loaded while this step computes (the
+    // last steps load their own again)
     const long long next = k + 1 < end ? k + 1 : k;
     uint32_t nx[fq::N], ny[fq::N];
-    load8(x2p, next, nx);
-    load8(y2p, next, ny);
+    load8(x2p, src, nx);
+    load8(y2p, src, ny);
+    long long after = next + 1 < end ? next + 1 : next;
+    if (idx) after = idx[after];
     add_mixed_lazy(x, y, z, ax, ay);
     store8_canon(x3p, k, x);
     store8_canon(y3p, k, y);
     store8_canon(z3p, k, z);
 #pragma unroll
     for (int j = 0; j < fq::N; ++j) ax[j] = nx[j], ay[j] = ny[j];
+    src = after;
   }
 }
 
 // The wrapper (cuda_g1.point_scan_mixed) refuses any field but BN254 Fq,
-// whose constants the kernel has built in.
+// whose constants the kernel has built in. `idx` may be null (dense rows).
 extern "C" int h2r_g1_scan_mixed(const void* x1, const void* y1, const void* z1, const void* x2,
-                                 const void* y2, void* x3, void* y3, void* z3, long long m,
-                                 int c, void* stream) {
+                                 const void* y2, const void* idx, void* x3, void* y3, void* z3,
+                                 long long m, int c, void* stream) {
   if (m <= 0) return 0;
   if (c < 1) return (int)cudaErrorInvalidValue;
   // At the prover's narrowest scan (2^14 rows) 64-thread blocks give each of
@@ -109,6 +127,7 @@ extern "C" int h2r_g1_scan_mixed(const void* x1, const void* y1, const void* z1,
   h2r_g1_scan_mixed_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
-      (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, m, c);
+      (const uint32_t*)y2, (const long long*)idx, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3,
+      m, c);
   return (int)cudaGetLastError();
 }

@@ -397,8 +397,10 @@ def launch_counts() -> dict:
 
 
 def _scan_shapes(run) -> dict:
-    """The shapes of every K2 call (rows, C) and K3-scan call (rows, L, 1
-    with the halving tree else 0) over ``run()``, as [[shape..., calls]]."""
+    """The shapes of every K2 call (rows, C; rows read through a
+    permutation, ``cuda_g1.IndexedRows``, have C as ``order.shape[-2]``) and
+    K3-scan call (rows, L, 1 with the halving tree else 0) over ``run()``, as
+    [[shape..., calls]]."""
     calls = {"K2": collections.Counter(), "K3-scan": collections.Counter()}
     real = {name: getattr(cuda_g1, name) for name in ("point_scan_mixed", "point_scan",
                                                       "point_scan_sum")}

@@ -7,8 +7,10 @@ whole Renes–Costello–Batina formula (a = 0, b3 = 9) per thread:
 * K2 :func:`point_scan_mixed` — algorithm 8, projective P1 + affine P2
   (``_point_add_mixed_kernel``), applied ``c`` times in one launch with
   every prefix stored (``csrc/g1_scan.cu``), as the MSM's bucket scan applies
-  it in a ``fori_loop``; :func:`point_add_mixed` is one add (c = 1) through
-  the same kernel. Complete when every P2 is a real affine point;
+  it in a ``fori_loop``; the affine rows are dense, or (:class:`IndexedRows`)
+  read in place through the bucket sort's permutation; :func:`point_add_mixed`
+  is one add (c = 1) through the same kernel. Complete when every P2 is a
+  real affine point;
 * K3 :func:`point_add` — algorithm 7, complete projective add
   (``_point_add_kernel``, ``csrc/g1.cu``), and the MSM's rounds of it in one
   launch per row scan (``csrc/g1_rows.cu``): :func:`point_scan`, the
@@ -31,6 +33,7 @@ bit, because each step returns the canonical residue.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -80,15 +83,39 @@ def point_add_mixed_plain(fc, p1, p2xy):
     return _plain(_point_add_mixed_u64, fc, p1, p2xy)
 
 
-def _scan_len(p1, pts_xy) -> int:
-    """C of a scan of start points (..., 8) over affine rows (..., C, 8);
+class IndexedRows(NamedTuple):
+    """Affine rows read through a permutation: element j of row r is source
+    point ``order[r, j, 0]`` of (x, y), each (N, 8). ``order`` is (..., C, 1)
+    int64 with every entry in [0, N), so that ``order.shape[-2]`` is C as
+    ``x.shape[-2]`` is for dense rows (x, y) of (..., C, 8)."""
+
+    order: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+
+
+def _scan_len(p1, pts) -> int:
+    """C of a scan of start points (..., 8) over affine rows: (x, y) of
+    (..., C, 8), or an :class:`IndexedRows` (any 3-tuple is read as one);
     raises unless the shapes match and C >= 1."""
     shape = p1[0].shape
-    rows = pts_xy[0].shape
-    if len(p1) != 3 or len(pts_xy) != 2 or shape[-1:] != (LIMBS,) or len(rows) < 2:
-        raise ValueError("point_scan_mixed: (X, Y, Z) of (..., 8) and (x, y) of (..., C, 8)")
-    if any(t.shape != shape for t in p1) or any(t.shape != rows for t in pts_xy) or \
-            rows[:-2] + rows[-1:] != shape:
+    if len(p1) != 3 or len(pts) not in (2, 3) or shape[-1:] != (LIMBS,) or \
+            any(t.shape != shape for t in p1):
+        raise ValueError("point_scan_mixed: (X, Y, Z) of (..., 8) and (x, y) of (..., C, 8) "
+                         "or IndexedRows")
+    if len(pts) == 3:
+        order, x, y = pts
+        if order.dtype != torch.int64 or order.dim() < 2 or order.shape[-1] != 1 or \
+                x.dim() != 2 or x.shape[-1] != LIMBS or y.shape != x.shape or x.shape[0] < 1:
+            raise ValueError("point_scan_mixed: IndexedRows of order (..., C, 1) int64 and "
+                             "(x, y) of (N, 8)")
+        rows = order.shape[:-1] + (LIMBS,)
+    else:
+        rows = pts[0].shape
+        if len(rows) < 2 or pts[1].shape != rows:
+            raise ValueError(f"point_scan_mixed: affine rows {tuple(rows)} and "
+                             f"{tuple(pts[1].shape)}, expected (x, y) of one shape (..., C, 8)")
+    if rows[:-2] + rows[-1:] != shape:
         raise ValueError(f"point_scan_mixed: start points {tuple(shape)} do not match affine "
                          f"rows {tuple(rows)}")
     if rows[-2] < 1:
@@ -96,10 +123,14 @@ def _scan_len(p1, pts_xy) -> int:
     return rows[-2]
 
 
-def point_scan_mixed_plain(fc, p1, pts_xy):
+def point_scan_mixed_plain(fc, p1, pts):
     """K2's plain version of the scan: :func:`point_add_mixed_plain` applied
-    along axis -2 of the affine rows, every prefix kept."""
-    c = _scan_len(p1, pts_xy)
+    along axis -2 of the affine rows, every prefix kept. Rows read through a
+    permutation (:class:`IndexedRows`) are gathered first."""
+    c = _scan_len(p1, pts)
+    if len(pts) == 3:
+        order, x, y = pts
+        pts = (x[order[..., 0]], y[order[..., 0]])
 
     def scan(fc, acc, pts):
         prefixes = []
@@ -108,7 +139,7 @@ def point_scan_mixed_plain(fc, p1, pts_xy):
             prefixes.append(acc)
         return tuple(torch.stack(coord, dim=-2) for coord in zip(*prefixes))
 
-    return _plain(scan, fc, p1, pts_xy)
+    return _plain(scan, fc, p1, pts)
 
 
 def _row_len(ps, key: str) -> int:
@@ -297,11 +328,13 @@ def _point_double_u64(fc, p):
 
 def _launch(counter: str, symbol: str, ins, outs, n: int, *extra) -> tuple:
     """Launch ``symbol`` on ``ins`` and ``outs`` over ``n`` threads' worth
-    of elements; ``extra`` C arguments follow the count."""
+    of elements (an input of None passes a null pointer); ``extra`` C
+    arguments follow the count."""
     from ..utils.cuda_build import library
 
     stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-    err = getattr(library(), symbol)(*[t.data_ptr() for t in ins + outs], n, *extra, stream)
+    ptrs = [None if t is None else t.data_ptr() for t in ins + outs]
+    err = getattr(library(), symbol)(*ptrs, n, *extra, stream)
     check_launch(err, symbol)
     LAUNCHES[counter] += 1
     return outs
@@ -412,25 +445,34 @@ def bucket_splice(fc, within, incl, ends):
                    npad, nchunks, npad // nchunks)
 
 
-def _scan_mixed(fc, p1, pts_xy):
-    c = _scan_len(p1, pts_xy)
+def _scan_mixed(fc, p1, pts):
+    c = _scan_len(p1, pts)
     _check_fq(fc, "K2")
     check_kernel_args(*p1)
-    check_kernel_args(*pts_xy)
-    ins = tuple(p1) + tuple(pts_xy)
+    xy = pts[-2:]
+    check_kernel_args(*xy)
+    ins = tuple(p1) + tuple(xy)
     _check_aligned(ins, "K2")
-    return _launch("g1_add_mixed", "h2r_g1_scan_mixed", ins, _empty3(pts_xy[0]),
+    order = pts[0] if len(pts) == 3 else None  # None: dense rows
+    if order is not None and (not order.is_cuda or not order.is_contiguous() or
+                              order.device != ins[0].device):
+        raise ValueError("point_scan_mixed: order must be contiguous on the points' device")
+    outs = tuple(torch.empty(p1[0].shape[:-1] + (c, LIMBS), dtype=torch.int32,
+                             device=ins[0].device) for _ in range(3))
+    return _launch("g1_add_mixed", "h2r_g1_scan_mixed", ins + (order,), outs,
                    p1[0].numel() // LIMBS, c)
 
 
-def point_scan_mixed(fc, p1, pts_xy):
+def point_scan_mixed(fc, p1, pts):
     """K2 over a row per start point: ``out[..., j, :] = p1 + pts[..., 0, :]
     + ... + pts[..., j, :]`` for start points (..., 8) and affine rows
     (..., C, 8), every prefix as (..., C, 8) coordinates, in one launch. The
-    kernel is built for BN254 Fq, so any other field raises."""
+    rows are (x, y) of (..., C, 8), or an :class:`IndexedRows` whose points
+    the kernel reads in place from its source through ``order``. The kernel
+    is built for BN254 Fq, so any other field raises."""
     if p1[0].device.type == "cpu":
-        return point_scan_mixed_plain(fc, p1, pts_xy)
-    return _scan_mixed(fc, p1, pts_xy)
+        return point_scan_mixed_plain(fc, p1, pts)
+    return _scan_mixed(fc, p1, pts)
 
 
 def point_add_mixed(fc, p1, p2xy):

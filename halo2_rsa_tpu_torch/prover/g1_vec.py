@@ -4,7 +4,8 @@ Counterpart of ``halo2_rsa_tpu/prover/g1_vec.py``. Points are homogeneous
 projective (X, Y, Z) tuples of ``(..., 8)`` int32 Montgomery Fq tensors;
 infinity is (0, 1, 0). The three point formulas go to K2-K4
 (:mod:`.cuda_g1`) after broadcasting their coordinates to one shape; the
-bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`),
+bucket scan's run of mixed adds goes to K2 whole (:func:`point_scan_mixed`,
+its sorted points read in place through the sort's permutation),
 the MSM's Hillis–Steele scans of K3 adds one launch per scan
 (:func:`point_scan`, :func:`point_scan_sum`), and its bucket-boundary
 splice one launch (:func:`bucket_splice`).
@@ -42,13 +43,15 @@ def point_add_mixed(p1, p2xy):
     return cuda_g1.point_add_mixed(FQ, c[:3], c[3:])
 
 
-def point_scan_mixed(p1, pts_xy):
+def point_scan_mixed(p1, pts):
     """Every prefix of each row of AFFINE points (x, y) of (..., C, 8) added
     to the projective start points (..., 8): (..., C, 8) coordinates, prefix
-    j = p1 + pts[..., 0, :] + ... + pts[..., j, :]. One K2 launch (C mixed
-    adds per row)."""
-    return cuda_g1.point_scan_mixed(
-        FQ, tuple(c.contiguous() for c in p1), tuple(c.contiguous() for c in pts_xy))
+    j = p1 + pts[..., 0, :] + ... + pts[..., j, :]. The rows may be a
+    :class:`.cuda_g1.IndexedRows`, read in place through its permutation.
+    One K2 launch (C mixed adds per row)."""
+    rows = tuple(c.contiguous() for c in pts)
+    return cuda_g1.point_scan_mixed(FQ, tuple(c.contiguous() for c in p1),
+                                    cuda_g1.IndexedRows(*rows) if len(rows) == 3 else rows)
 
 
 def point_scan(ps):

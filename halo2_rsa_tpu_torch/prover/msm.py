@@ -8,7 +8,9 @@ coordinates:
   2. per window, a stable sort of the points by digit;
   3. a chunked inclusive prefix scan of the sorted points: a C-step
      sequential scan across all chunks at once (one K2 launch of C mixed
-     adds per thread when the base points are affine, else C K3 launches),
+     adds per thread when the base points are affine, reading each point in
+     place through the sort's permutation; else the points gathered in
+     sorted order and C K3 launches),
      a log-depth Hillis–Steele scan over the chunk totals (one K3 scan
      launch), and the chunk offsets spliced in only at the bucket
      boundaries;
@@ -28,8 +30,9 @@ import torch
 from ..fields import vecfield
 from ..fields.cuda_mont import LIMBS, u64
 from ..fields.field import BN254_FR
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import curve, g1_vec
+from .cuda_g1 import IndexedRows
 from .g1_vec import (
     bucket_splice,
     identity,
@@ -67,43 +70,51 @@ def _bucket_sums(digits: torch.Tensor, points, num_buckets: int, z_one: bool = F
     """digits (W, N) int64; points: projective tuple of (N, 8).
 
     Returns bucket sums as a tuple of (W, num_buckets, 8) coordinates.
-    ``z_one``: every point is affine; only (x, y) are gathered and the scan
-    uses the mixed add (K2)."""
+    ``z_one``: every point is affine; the scan uses the mixed add (K2), which
+    reads (x, y) of each point in place through the sort's permutation
+    (count ``indexed_rows``). Otherwise the points are gathered in sorted
+    order (count ``gathered_rows``)."""
     w, n = digits.shape
     dev = digits.device
     ds, order = torch.sort(digits, dim=1, stable=True)
-    ps = tuple(c[order] for c in (points[:2] if z_one else points))  # (W, N, 8)
 
     c_len = _pick_chunk(n)
     npad = -(-n // c_len) * c_len
-    if npad > n:
-        pad = npad - n
-        ds = torch.cat([ds, torch.full((w, pad), num_buckets, dtype=ds.dtype, device=dev)], dim=1)
-        if z_one:
-            # pad with a real affine point (the generator): its digit
-            # num_buckets sorts after every live element, so no bucket
-            # boundary reads a prefix containing it
-            gen = g1_vec.points_to_device([curve.G1_GEN], device=dev)
-            padp = tuple(c.expand(w, pad, LIMBS) for c in gen[:2])
-        else:
-            padp = identity((w, pad), device=dev)
-        ps = tuple(torch.cat([c, ic], dim=1) for c, ic in zip(ps, padp))
     n_chunks = npad // c_len
-    p3 = tuple(c.reshape(w, n_chunks, c_len, LIMBS) for c in ps)
+    acc = identity((w, n_chunks), device=dev)
+    # padding digits num_buckets sort after every live element, so no bucket
+    # boundary reads a prefix containing a padding point
+    pad = npad - n
+    if pad:
+        ds = torch.cat([ds, torch.full((w, pad), num_buckets, dtype=ds.dtype, device=dev)], dim=1)
 
     # 1) sequential inclusive scan within each length-C chunk; the chunk
     # totals are the last prefixes
-    acc = identity((w, n_chunks), device=dev)
     if z_one:
-        within = point_scan_mixed(acc, p3)
+        src = tuple(points[:2])
+        if pad:
+            # pad with a real affine point (the generator), one row past the
+            # source that every padding index reads
+            gen = g1_vec.points_to_device([curve.G1_GEN], device=dev)
+            src = tuple(torch.cat([c, g]) for c, g in zip(src, gen[:2]))
+            order = torch.cat([order, torch.full((w, pad), n, dtype=order.dtype, device=dev)],
+                              dim=1)
+        count(indexed_rows=w * npad)
+        within = point_scan_mixed(acc, IndexedRows(order.reshape(w, n_chunks, c_len, 1), *src))
     else:
+        ps = tuple(c[order] for c in points)  # (W, N, 8)
+        count(gathered_rows=w * n)
+        if pad:
+            ident = identity((w, pad), device=dev)
+            ps = tuple(torch.cat([c, ic], dim=1) for c, ic in zip(ps, ident))
+        p3 = tuple(c.reshape(w, n_chunks, c_len, LIMBS) for c in ps)
         within = tuple(torch.empty_like(c) for c in identity((w, n_chunks, c_len), device=dev))
         for j in range(c_len):
             acc = point_add(acc, tuple(c[:, :, j] for c in p3))
             for o, a in zip(within, acc):
                 o[:, :, j] = a
+        del p3, ps
     acc = tuple(c[:, :, -1] for c in within)
-    del p3, ps
 
     # 2) inclusive scan of the chunk totals (n_chunks <= 512: npow <= _SEG)
     incl = point_scan(acc)
@@ -148,7 +159,8 @@ def _msm_chunk_sums(sc: torch.Tensor, points, window_bits: int, z_one: bool = Fa
 
 
 # Point-axis segment size for large MSMs (bounds the bucket pipeline's
-# gathered working set).
+# working set: the segment's points, which K2 reads through the sort's
+# permutation, and every prefix of its scan).
 _SEG = 1 << 15
 
 

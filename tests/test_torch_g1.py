@@ -132,6 +132,45 @@ def test_k2_scan_matches_successive_jax_mixed_adds(pts, c):
             assert host[2 + j] is None  # B + (-B) at step 1, D + (-D) at step 2
 
 
+@pytest.mark.parametrize("c", [1, 4, 8])
+def test_k2_scan_through_a_permutation_equals_gather_then_plain(pts, c):
+    """The scan over an IndexedRows (the bucket sort's permutation over a
+    source of affine points) equals the plain scan over the rows gathered
+    in that order, every prefix bitwise, on the CPU fallback and through
+    ``g1_vec``: 16 rows from the 16 points of ``_affine_operand``, an index
+    with repeats (row 0 one point c times), starts with random Z."""
+    _, _, txy = _affine_operand(pts)
+    gen = torch.Generator().manual_seed(c)
+    order = torch.randint(0, N, (N, c, 1), generator=gen)
+    order[0] = 3
+    rows = cuda_g1.IndexedRows(order, *txy)
+    got = cuda_g1.point_scan_mixed_plain(tg1.FQ, pts["ta"], rows)
+    want = cuda_g1.point_scan_mixed_plain(tg1.FQ, pts["ta"],
+                                          tuple(t[order[..., 0]] for t in txy))
+    assert all(t.shape == (N, c, 8) for t in got)
+    for g, w, v in zip(got, want, tg1.point_scan_mixed(pts["ta"], rows)):
+        assert torch.equal(g, w) and torch.equal(v, w)
+    # a plain 3-tuple (an IndexedRows copied as a tuple) reads the same
+    for g, w in zip(cuda_g1.point_scan_mixed_plain(tg1.FQ, pts["ta"], tuple(rows)), want):
+        assert torch.equal(g, w)
+
+
+def test_k2_scan_rejects_bad_permutations(pts):
+    _, _, (x, y) = _affine_operand(pts)
+    order = torch.zeros((N, 3, 1), dtype=torch.int64)
+    for bad in (
+        (order.int(), x, y),  # not int64
+        (order[..., 0], x, y),  # no trailing 1
+        (order[:3], x, y),  # 3 rows, 16 starts
+        (order[:, :0], x, y),  # C = 0
+        (order, x[None], y[None]),  # a source of (1, N, 8)
+        (order, x, y[:4]),  # x and y of other shapes
+    ):
+        for fn in (cuda_g1.point_scan_mixed_plain, cuda_g1.point_scan_mixed):
+            with pytest.raises(ValueError):
+                fn(tg1.FQ, pts["ta"], cuda_g1.IndexedRows(*bad))
+
+
 def test_k2_scan_rejects_bad_c_and_shapes(pts):
     xy = tuple(c[:, None].expand(N, 3, 8).contiguous() for c in pts["ta"][:2])
     for start, rows in (

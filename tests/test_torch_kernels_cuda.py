@@ -6,7 +6,8 @@ place, and its own kernels K1-pow (the exponentiation) and K1-prefix (the
 prefix product) at lengths around K1-prefix's tile and at one row of more
 than tile^2 elements. K3 is also held on coordinates lifted by q, as its
 lazy core may hold them, and its row scans over 128 rows with every cluster
-size. The NTT kernel (one launch per stage) is held against the torch stage
+size. K2 is also held reading its rows in place through a bucket sort's
+permutation against K2 on the gathered rows. The NTT kernel (one launch per stage) is held against the torch stage
 loop from 2 to 2^21 elements.
 
 The kernel tests need an NVIDIA GPU and nvcc: they carry the ``cuda``
@@ -313,6 +314,67 @@ def test_k2_k3_k4_kernels_match_plain(cuda):
             assert cuda_g1.LAUNCHES["g1_double"] == before + 1
             for g, w in zip(got, cuda_g1.point_double_plain(fq, pn, reps)):
                 assert torch.equal(g, w), (n, reps)
+
+
+def _sorted_order(windows, n, buckets, device, seed):
+    """The bucket pipeline's permutation: each window's stable sort of
+    random digits in [0, buckets) over n points, (windows, n) int64."""
+    gen = torch.Generator().manual_seed(seed)
+    digits = torch.randint(0, buckets, (windows, n), generator=gen)
+    return torch.sort(digits, dim=1, stable=True)[1].to(device)
+
+
+@pytest.mark.cuda
+def test_k2_reads_sorted_points_in_place(cuda):
+    """K2 through the sort's permutation (IndexedRows) equals K2 on the
+    gathered rows src[order], bitwise: 64 windows x 512 chunks at C = 64
+    from a 2^15-point source (the bucket scan of one pipeline at k >= 16);
+    1,000 rows at C = 1 and 4 over an index with repeats; and 3 windows of
+    44 points padded to 48 with an index to a generator row past the
+    source, as msm._bucket_sums pads. Starts are the identity, and the 1,000
+    points tiled (lane 1 the identity) where C < 64."""
+    fq = g1_vec.FQ
+    base = _points(1000, cuda)
+    aff = g1_vec.points_to_affine(tuple(torch.cat([c[:1], c[2:]]) for c in base))[:2]
+    src = tuple(c.repeat(33, 1)[: 1 << 15].contiguous() for c in aff)
+    gen = g1_vec.points_to_device([curve.G1_GEN], device=cuda)[:2]
+    rng = torch.Generator().manual_seed(3)
+    cases = []
+    order = _sorted_order(64, 1 << 15, 256, cuda, 1)
+    cases.append((order.view(64 * 512, 64, 1), src, g1_vec.identity((64 * 512,), device=cuda)))
+    for c in (1, 4):
+        order = torch.randint(0, 1 << 15, (1000, c, 1), generator=rng).to(cuda)
+        order[0, :, 0] = 7  # one point c times
+        starts = tuple(t[:1000].contiguous() for t in base)
+        cases.append((order, src, starts))
+    order = torch.cat([_sorted_order(3, 44, 16, cuda, 2),
+                       torch.full((3, 4), 44, dtype=torch.int64, device=cuda)], dim=1)
+    padded = tuple(torch.cat([c[:44], g]) for c, g in zip(src, gen))
+    cases.append((order.view(3 * 6, 8, 1), padded, g1_vec.identity((3 * 6,), device=cuda)))
+    for order, (x, y), starts in cases:
+        rows = cuda_g1.IndexedRows(order, x, y)
+        before = cuda_g1.LAUNCHES["g1_add_mixed"]
+        got = cuda_g1.point_scan_mixed(fq, starts, rows)
+        assert cuda_g1.LAUNCHES["g1_add_mixed"] == before + 1
+        dense = cuda_g1.point_scan_mixed(fq, starts, (x[order[..., 0]], y[order[..., 0]]))
+        for g, w in zip(got, dense):
+            assert torch.equal(g, w), tuple(order.shape)
+        if order.shape[0] <= 1000:
+            for g, w in zip(got, cuda_g1.point_scan_mixed_plain(fq, starts, rows)):
+                assert torch.equal(g, w), tuple(order.shape)
+    # the order's own checks: int64, (..., C, 1), contiguous, on the points'
+    # device; the source 16-byte aligned
+    order, (x, y), starts = cases[2]  # C = 4
+    off = torch.zeros(x.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(x.shape)
+    before = cuda_g1.LAUNCHES["g1_add_mixed"]
+    for bad in (cuda_g1.IndexedRows(order.int(), x, y),
+                cuda_g1.IndexedRows(order[..., 0], x, y),
+                cuda_g1.IndexedRows(order.cpu(), x, y),
+                cuda_g1.IndexedRows(order.transpose(0, 1).contiguous().transpose(0, 1), x, y),
+                cuda_g1.IndexedRows(order, off, y)):
+        with pytest.raises(ValueError):
+            cuda_g1.point_scan_mixed(fq, starts, bad)
+    assert cuda_g1.LAUNCHES["g1_add_mixed"] == before
 
 
 @pytest.mark.cuda

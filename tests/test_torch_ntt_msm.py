@@ -22,6 +22,7 @@ from halo2_rsa_tpu_torch.prover import curve
 from halo2_rsa_tpu_torch.prover import g1_vec as tg1
 from halo2_rsa_tpu_torch.prover import msm as tmsm
 from halo2_rsa_tpu_torch.prover import ntt as tntt
+from halo2_rsa_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 R = curve.R
@@ -158,6 +159,21 @@ def test_msm_many_segmented_matches_jax_and_host(monkeypatch):
     monkeypatch.setattr(jmsm, "_SEG", 32)
     monkeypatch.setattr(tmsm, "_SEG", 32)
     _msm_case(p=2, n=70, seed=7, z_one=False)
+
+
+@pytest.mark.parametrize("z_one", [True, False])
+def test_msm_span_counts_indexed_or_gathered_rows(z_one):
+    """The span ``msm`` counts the points K2 read through the sort's
+    permutation (affine bases) or the rows gathered in sorted order (any
+    other bases): P x W x N, here 2 polys x 64 windows of 4 bits x 64
+    points (40 padded)."""
+    pts = _points(40, 3)
+    st = tvf.from_ints(tntt.FR, _scalars(80, 4), mont=False, device="cpu").reshape(2, 40, 8)
+    with profiling.tracing() as trace:
+        tmsm.msm_many(st, tg1.points_to_device(pts, device="cpu"), z_one=z_one)
+    counts = trace.totals()["msm"]
+    key, other = ("indexed_rows", "gathered_rows") if z_one else ("gathered_rows", "indexed_rows")
+    assert counts[key] == 2 * 64 * 64 and other not in counts
 
 
 def test_msm_many_host_matches_host_sums():

@@ -7,8 +7,13 @@ on the CPU, over rows that hold the identity, runs of one point (P+P in the
 first round) and P, -P neighbours, all with random Z (numpy seed). The row
 length bound of the kernel is checked against every MSM size the prover
 runs. ``msm._bucket_sums``, which ends in ``cuda_g1.bucket_splice``, is
-held bitwise against the JAX package's, with empty buckets first.
+held bitwise against the JAX package's, with empty buckets first and with
+windows padded to whole chunks; its K2 call (the points read through the
+sort's permutation) reads as the benchmark's recorder expects.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ from halo2_rsa_tpu_torch.prover import msm as tmsm
 
 torch.set_num_threads(1)
 ROWS = 3
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
 
 
 def _rows(length: int, seed: int):
@@ -121,8 +127,22 @@ def test_bucket_sums_match_jax_with_empty_buckets(z_one):
     """3 windows x 40 points (chunks of 8), 16 buckets: window 0 leaves
     buckets 0-2 empty (their ends are -1), window 1 puts every point in
     bucket 5, window 2 draws digits at random."""
+    _bucket_case(40, z_one)
+
+
+@pytest.mark.parametrize("z_one", [True, False])
+def test_bucket_sums_padded_to_whole_chunks_match_jax(z_one):
+    """44 points in chunks of 8: the scan pads each window to 48, with the
+    generator (an index to a row past the source, for K2) or the identity,
+    at a digit after every bucket; the windows as in
+    :func:`test_bucket_sums_match_jax_with_empty_buckets`."""
+    assert tmsm._pick_chunk(44) == 8
+    _bucket_case(44, z_one)
+
+
+def _bucket_case(n: int, z_one: bool):
     rng = np.random.default_rng(31)
-    n, buckets = 40, 16
+    buckets = 16
     digits = np.stack([rng.integers(3, buckets, size=n), np.full(n, 5),
                        rng.integers(0, buckets, size=n)])
     aff = [curve.g1_mul(curve.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=n)]
@@ -144,6 +164,52 @@ def test_bucket_sums_match_jax_with_empty_buckets(z_one):
         for d, p in zip(digits[w], aff):
             want[w][d] = curve.g1_add(want[w][d], p)
     assert tg1.points_from_device(tuple(c.reshape(-1, 8) for c in got)) == sum(want, [])
+
+
+@pytest.mark.parametrize("n", [64, 44])
+def test_bucket_scan_call_reads_as_the_benchmark_records_it(monkeypatch, n):
+    """The (fc, p1, pts) that ``msm._bucket_sums`` hands
+    ``cuda_g1.point_scan_mixed`` (the affine points read through the sort's
+    permutation) are read by the benchmark's recorder (its ``_SHAPES``
+    entry) and by ``parallel.ranks._scan_shapes`` as (windows x chunks, C),
+    the dense rows' shape: three positional arguments, no keyword."""
+    if BENCH not in sys.path:
+        sys.path.insert(0, BENCH)
+    from harness import recorder
+
+    from halo2_rsa_tpu_torch.parallel import ranks
+
+    kernel, shape = recorder._SHAPES[("cuda_g1", "point_scan_mixed")]
+    seen = []
+    real = cuda_g1.point_scan_mixed
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cuda_g1, "point_scan_mixed", spy)
+    rng = np.random.default_rng(n)
+    digits = torch.from_numpy(rng.integers(0, 16, size=(3, n)))
+    aff = [curve.g1_mul(curve.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, size=n)]
+    tp = tuple(tvf.from_ints(tg1.FQ, c, device="cpu")
+               for c in ([p[0] for p in aff], [p[1] for p in aff], [1] * n))
+
+    def run():
+        return tmsm._bucket_sums(digits, tp, 16, z_one=True)
+
+    got = run()
+    c = tmsm._pick_chunk(n)
+    rows = 3 * -(-n // c)
+    (args, kw), = seen
+    assert kernel == "K2" and not kw and len(args) == 3
+    assert isinstance(args[2], cuda_g1.IndexedRows)
+    assert shape(*args) == (rows, c)
+    assert ranks._scan_shapes(run)["K2"] == [[rows, c, 1]]
+    want = [[None] * 16 for _ in range(3)]
+    for w in range(3):
+        for d, p in zip(digits[w].tolist(), aff):
+            want[w][d] = curve.g1_add(want[w][d], p)
+    assert tg1.points_from_device(tuple(c_.reshape(-1, 8) for c_ in got)) == sum(want, [])
 
 
 def test_bucket_splice_rejects_bad_shapes():

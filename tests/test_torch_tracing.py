@@ -3,7 +3,8 @@
 Off (the default), ``span`` is the shared null context: no clock is read, no
 profiler range opened, nothing recorded. On, the k=5 golden proof records
 its rounds and the steps inside them with their parents, requests and
-counts (the key's tail comb is not built inside it), a small batched
+counts (the key's tail comb is not built inside it; each MSM counts the
+points K2 read through the bucket sort's permutation), a small batched
 replay records one span per group, and a build with SHA-256 in its
 dynamic-length mode records ``sha256.dynamic`` inside ``synth`` with its
 blocks and the message's bytes; proof bytes
@@ -162,6 +163,23 @@ def test_golden_prove_spans_parents_requests_counts(golden_case, traced):
     assert totals["msm"]["spans"] == len(by["msm"]) == 4
     assert totals["ntt"]["batch"] == sum(s.counts["batch"] for s in by["ntt"])
     assert totals["prove"]["seconds"] == pytest.approx(root.seconds)
+
+
+def test_msm_spans_count_the_points_k2_reads_through_the_permutation(traced):
+    """Every commitment's MSM runs on affine bases: its span counts the
+    points K2 read in place through the bucket sort's permutation, P x W x
+    N over its pipelines (N padded to a power of two), and no gathered
+    rows."""
+    from halo2_rsa_tpu_torch.prover import msm
+
+    _, trace = traced
+    spans = [s for s in trace.spans if s.name == "msm"]
+    assert spans
+    for s in spans:
+        npow = max(32, 1 << (s.counts["points"] - 1).bit_length())
+        windows = 256 // msm._window_bits_for(min(npow, msm._SEG))
+        assert s.counts.get("gathered_rows", 0) == 0
+        assert s.counts["indexed_rows"] == s.counts["polys"] * windows * npow
 
 
 def test_request_defaults_to_the_root_span(replay):
